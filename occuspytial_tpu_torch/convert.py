@@ -13,15 +13,18 @@ stream from those keys.
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .models.base import Carry
 
 
-def carry_from_jax(key_words, states, device='cpu', dtype=torch.float32,
+def carry_from_jax(key_words, states, device=None, dtype=torch.float32,
                    step=0):
     """The port's :class:`~.models.base.Carry` from a JAX carry given as
     numpy arrays: ``key_words`` (chains, 2) uint32 (``jax.random.
     key_data`` of the carry's keys) and ``states`` name -> (chains, ...)
-    array. Floating entries become ``dtype`` on ``device``."""
+    array. Floating entries become ``dtype`` on ``device`` (``None``
+    means ``'cuda'``, and raises without it)."""
+    device = resolve_device(device)
     words = np.asarray(key_words)
     if words.ndim != 2 or words.shape[1] != 2:
         raise ValueError(

@@ -168,6 +168,23 @@ def mcse_mean(x):
     return x.std(ddof=1) / np.sqrt(ess)
 
 
+def mean_z_ratio(a, b, z_tol=6.0, floor=0.05, min_ess=10.0):
+    """How far apart the means of two (chains, draws) samples are, in
+    units of a two-sample z-test tolerance: ``|mean(a) - mean(b)| /
+    max(z_tol * hypot(se_a, se_b), floor)``, with each standard error
+    ``std / sqrt(ess)`` and the ESS floored at ``min_ess``. Below 1 the
+    means agree to Monte Carlo error."""
+    moments = []
+    for x in (a, b):
+        x = np.atleast_2d(np.asarray(x, dtype=np.float64))
+        ess = ess_mean(x)
+        if not np.isfinite(ess) or ess < min_ess:
+            ess = min_ess
+        moments.append((x.mean(), x.std(ddof=1) / np.sqrt(ess)))
+    (m_a, se_a), (m_b, se_b) = moments
+    return abs(m_a - m_b) / max(z_tol * np.hypot(se_a, se_b), floor)
+
+
 def mcse_sd(x):
     """Monte Carlo standard error of the standard deviation."""
     x = np.atleast_2d(np.asarray(x, dtype=np.float64))

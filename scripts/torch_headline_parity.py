@@ -21,15 +21,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 '..'))
 
 
-def mean_and_mcse(arr):
-    from occuspytial_tpu_torch import diagnostics as dg
-
-    ess = dg.ess_mean(arr)
-    if not np.isfinite(ess) or ess < 10:
-        ess = 10.0
-    return arr.mean(), arr.std(ddof=1) / np.sqrt(ess)
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--draws', type=int, default=600)
@@ -44,6 +35,7 @@ def main():
     from occuspytial_tpu.models.logit import LogitICARGibbs as JaxLogit
 
     from occuspytial_tpu_torch import LogitICARGibbs
+    from occuspytial_tpu_torch import diagnostics as dg
     from occuspytial_tpu_torch.utils import make_data
 
     Q, W, X, y, *_ = make_data(n=1000, ns=500, p=3, q=3, min_v=2,
@@ -60,10 +52,9 @@ def main():
         if a.ndim == 2:
             a, b = a[..., None], b[..., None]
         for j in range(a.shape[2]):
-            m1, s1 = mean_and_mcse(a[:, :, j])
-            m2, s2 = mean_and_mcse(b[:, :, j])
-            tol = max(6.0 * np.hypot(s1, s2), 0.05)
-            print(f'{name}[{j}] {m1:.4f} {m2:.4f} {abs(m1 - m2) / tol:.3f}')
+            ratio = dg.mean_z_ratio(a[:, :, j], b[:, :, j])
+            print(f'{name}[{j}] {a[:, :, j].mean():.4f} '
+                  f'{b[:, :, j].mean():.4f} {ratio:.3f}')
 
 
 if __name__ == '__main__':

@@ -82,6 +82,36 @@ def test_spectral_cg_matches_jax(system, iters, tau):
         assert torch.equal(g, w)
 
 
+# from a zero start, one or two iterations leave relative residuals of
+# 1e-3 to 1e-1, where a wrong residual shows. (From the random warm start
+# at tau = 1e4 the first residual is ~1e4 |b| and cancels to ~0.05 |b| in
+# one iteration, which leaves only float32 rounding to compare.)
+STARVED = [(1.0, 1), (1.0, 2), (1e4, 1)]
+
+
+@pytest.mark.parametrize('tau, iters', STARVED)
+def test_starved_cg_residual_matches_jax(system, tau, iters):
+    taus = np.full(CHAINS, tau, np.float32)
+    zero = np.zeros_like(system['warm'])
+    want = jax.vmap(
+        lambda r, w, o, t: jcg.icar_cg_solve_spectral(
+            r, w, o, t, jnp.asarray(system['u']), jnp.asarray(system['s']),
+            iters, return_resid=True,
+        )
+    )(jnp.asarray(system['rhs']), jnp.asarray(zero),
+      jnp.asarray(system['omega']), jnp.asarray(taus))
+    got = tcg.icar_cg_solve_spectral(
+        _t(system['rhs']), _t(zero), _t(system['omega']), _t(taus),
+        _t(system['u']), _t(system['s']), iters, return_resid=True,
+    )
+    _close(got[0].numpy(), want[0])
+    _close(got[1].numpy(), want[1])
+    rel_want = np.asarray(want[2])
+    assert rel_want.min() >= 1e-3
+    # each chain's residual to 1e-3 of itself, no absolute floor
+    assert np.all(np.abs(got[2].numpy() - rel_want) <= 1e-3 * rel_want)
+
+
 def test_spectral_cg_solves_the_system(system):
     """15 iterations solve tau*Q + diag(omega) to float32 accuracy."""
     tau = torch.full((CHAINS,), 3.0)

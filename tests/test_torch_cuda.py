@@ -69,11 +69,38 @@ def test_cg_kernel_matches_plain(dev, tau):
     assert icar_cg_solve_cuda.launches == before + 1
     want = tcg.icar_cg_solve_spectral(*args, return_resid=True)
     # float32 sums in another order: 1e-4 of the largest entry; relative
-    # residuals below 1e-6 are rounding and compare absolutely
+    # residuals below 1e-6 are rounding and compare absolutely (the
+    # starved solves below compare them relatively)
     for g, w in zip(got[:2], want[:2]):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
     assert float(((got[2] - want[2]).abs()
                   / (want[2].abs() + 1e-3)).max()) <= 1e-3
+
+
+@pytest.mark.parametrize('tau, iters', [(1.0, 1), (1.0, 2), (1e4, 1)])
+def test_cg_kernel_starved_residual_matches_plain(dev, tau, iters):
+    """From a zero start, one or two iterations leave relative residuals
+    of 1e-3 to 1e-1: the kernel's agree with the plain solve's to 1e-3 of
+    themselves, with no absolute floor."""
+    q = lattice_precision(10, 20).toarray().astype(np.float64)
+    s, u, _ = icar_spectral(q)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    chains, rows, n = 4, 6, q.shape[0]
+    args = (
+        torch.randn((chains, rows, n), device=dev, generator=gen),
+        torch.zeros((chains, rows, n), device=dev),
+        0.05 + 0.25 * torch.rand((chains, n), device=dev, generator=gen),
+        torch.full((chains,), tau, device=dev),
+        torch.as_tensor(u, dtype=torch.float32, device=dev),
+        torch.as_tensor(s, dtype=torch.float32, device=dev),
+        iters,
+    )
+    got = icar_cg_solve_cuda(*args, return_resid=True)
+    want = tcg.icar_cg_solve_spectral(*args, return_resid=True)
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert float(want[2].min()) >= 1e-3
+    assert bool(((got[2] - want[2]).abs() <= 1e-3 * want[2]).all())
 
 
 def test_main_path_runs_and_is_reproducible(dev):

@@ -118,7 +118,7 @@ def _start(js, chains=1):
     jstate = {k: v[0] for k, v in states.items()}
     carry = carry_from_jax(
         np.asarray(jax.random.key_data(keys))[:1],
-        {k: np.asarray(v)[:1] for k, v in states.items()},
+        {k: np.asarray(v)[:1] for k, v in states.items()}, device='cpu',
     )
     return jstate, carry.states
 
@@ -271,6 +271,8 @@ def test_default_device_without_cuda_raises(data, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         LogitICARGibbs(Q, W, X, y)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        carry_from_jax(np.zeros((1, 2), np.uint32), {})
 
 
 @pytest.mark.parametrize('kwargs', [

@@ -26,13 +26,6 @@ Z_TOL, FLOOR = 6.0, 0.05
 CG_ITERS = 15
 
 
-def _mean_and_mcse(arr):
-    ess = dg.ess_mean(arr)
-    if not np.isfinite(ess) or ess < 10:
-        ess = 10.0
-    return arr.mean(), arr.std(ddof=1) / np.sqrt(ess)
-
-
 def test_port_posterior_means_match_jax_sampler():
     Q, W, X, y, *_ = make_data(
         n=150, ns=100, p=3, q=2, min_v=2, max_v=10, random_state=10
@@ -47,9 +40,10 @@ def test_port_posterior_means_match_jax_sampler():
     assert port.last_solver_resid <= port.solver_check_tol
     for name, dim in (('alpha', 2), ('beta', 3)):
         for j in range(dim):
-            m1, se1 = _mean_and_mcse(np.asarray(post[name])[:, :, j])
-            m2, se2 = _mean_and_mcse(np.asarray(jax_post[name])[:, :, j])
-            tol = max(Z_TOL * np.hypot(se1, se2), FLOOR)
-            assert abs(m1 - m2) < tol, (
-                f'{name}[{j}]: port {m1:.4f} vs jax {m2:.4f} (tol {tol:.4f})'
+            a = np.asarray(post[name])[:, :, j]
+            b = np.asarray(jax_post[name])[:, :, j]
+            ratio = dg.mean_z_ratio(a, b, Z_TOL, FLOOR)
+            assert ratio < 1.0, (
+                f'{name}[{j}]: port {a.mean():.4f} vs jax {b.mean():.4f} '
+                f'({ratio:.3f} of the tolerance)'
             )
