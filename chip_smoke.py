@@ -30,16 +30,22 @@ CHAINS = 64
 MAIN_SIZE, MAIN_BURNIN = 1024, 256
 CG_SIZE, CG_BURNIN = 512, 128
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
+#: op/s, dense TF32 tensor-core op/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 
-#: operations one Pólya-Gamma rejection round costs a lane: 5 Threefry
-#: blocks (20 rounds x add/rotate/xor + 5 key injections, ~70 integer ops
-#: each) plus ~100 float operations (about 12 transcendental calls and
-#: the proposal arithmetic); counted at the float32 rate
-PG_OPS_PER_ROUND = 5 * 70 + 100
-
+#: operations one Pólya-Gamma rejection round must cost a lane on its
+#: cheapest path (the exponential tail): 2 Threefry blocks (20 rounds x
+#: add/rotate/xor + 5 key injections, ~70 integer ops each) plus ~60 float
+#: operations (the proposal and the 4-term series test, about 6
+#: transcendental calls); the body paths need 4 blocks. Counted at the
+#: float32 rate, so the bound holds for every path
+PG_OPS_PER_ROUND = 2 * 70 + 60
+#: operations the mixture inputs cost a lane once: c, k_exp and the mass
+#: (about 12 transcendental calls, erfcx and erfc among them)
+PG_OPS_INPUTS = 120
 
 def phase(name):
     print(f'--- {name}', flush=True)
@@ -194,12 +200,10 @@ def main():
         check(torch.equal(s._pg(sub, z), out_k), f'{method} differs')
         check(pg_devroye_cuda.launches == before + 1, f'{method} no launch')
     s.pg_method = 'pallas_packed'
-    from occuspytial_tpu_torch.ops import cuda_pg
-
-    keys32 = torch.where(sub >= 2 ** 31, sub - 2 ** 32, sub).to(torch.int32)
-    prepared = [t.contiguous() for t in pgm.pg_inputs(z)]
-    pg_ms = time_ms(lambda: cuda_pg.launch(keys32, *prepared), 50)
-    pg_wrapper_ms = time_ms(lambda: pg_devroye_cuda(sub, z), 50)
+    # the kernel computes its inputs itself, so the draw is one launch and
+    # the kernel's time without them is no longer separable: `ms` is the
+    # whole draw
+    pg_ms = time_ms(lambda: pg_devroye_cuda(sub, z), 50)
     pg_plain_ms = time_ms(lambda: pgm.pg_devroye(sub, z), 5)
     lane_rounds = [0]
 
@@ -208,12 +212,12 @@ def main():
         return rng.pg_uniforms(sub, k, z.shape[-1], lanes=idx)
 
     pgm._rejection(*pgm.pg_inputs(z), counting)
-    pg_bytes = z.numel() * 4 * 4 + sub.numel() * 4
-    pg_ops = lane_rounds[0] * PG_OPS_PER_ROUND
+    pg_bytes = z.numel() * 2 * 4 + sub.numel() * 8
+    pg_ops = lane_rounds[0] * PG_OPS_PER_ROUND + z.numel() * PG_OPS_INPUTS
     pg_bound = max(pg_bytes / PEAK_BYTES, pg_ops / PEAK_F32) * 1e3
-    print(f'    kernel {pg_ms:.4f} ms (with its torch-op inputs '
-          f'{pg_wrapper_ms:.4f} ms), plain {pg_plain_ms:.4f} ms, '
-          f'lane-rounds {lane_rounds[0]}, bound {pg_bound:.5f} ms')
+    print(f'    draw (one launch, inputs in the kernel) {pg_ms:.4f} ms, plain '
+          f'{pg_plain_ms:.4f} ms, lane-rounds {lane_rounds[0]}, bound '
+          f'{pg_bound:.5f} ms')
     done(t0)
 
     t0 = phase('4 K3 eigenbasis CG kernel against the plain spectral CG')
@@ -269,6 +273,94 @@ def main():
               f'starved CG x differs tau={tau_v} iters={iters}')
         check(e_rel <= 1e-3, f'starved CG residual differs tau={tau_v} '
                              f'iters={iters}')
+    # shapes off the tile grid: chain and row counts, n not a multiple of
+    # 64 (500) or of 4 (333, staged by 4-byte copies), any orthogonal U;
+    # each converged (8 iterations, warm) and cut short from a zero start
+    # (1 and 2 iterations), where the residual is far from rounding (above
+    # 1e-4; a converged one reads 1e-7) and is held to 1e-3 of itself with
+    # no floor
+    shape_err, starved_err, starved_min = 0.0, 0.0, math.inf
+    for n_t in (s.n, 500, 333):
+        if n_t == s.n:
+            u_t, s_t = u_eig, s_eig
+        else:
+            u_t = torch.linalg.qr(torch.randn((n_t, n_t), device=dev,
+                                              generator=gen))[0].contiguous()
+            s_t = 8.0 * torch.rand(n_t, device=dev, generator=gen)
+            s_t[0] = 0.0
+        for ch in (1, 3, 64, 200):
+            for rw in (2, 6, 8):
+                a = (
+                    torch.randn((ch, rw, n_t), device=dev, generator=gen),
+                    0.1 * torch.randn((ch, rw, n_t), device=dev,
+                                      generator=gen),
+                    0.05 + 0.25 * torch.rand((ch, n_t), device=dev,
+                                             generator=gen),
+                    0.5 + torch.rand(ch, device=dev, generator=gen),
+                    u_t, s_t, 8,
+                )
+                got = icar_cg_solve_cuda(*a, return_resid=True)
+                want = icar_cg_solve_spectral(*a, return_resid=True)
+                torch.cuda.synchronize()
+                for g, w in zip(got[:2], want[:2]):
+                    e = float((g - w).abs().max() / w.abs().max())
+                    shape_err = max(shape_err, e)
+                    check(e <= 1e-4, f'CG x differs at chains={ch} '
+                                     f'rows={rw} n={n_t}: {e:.2e}')
+                e = float(((got[2] - want[2]).abs()
+                           / (want[2].abs() + 1e-3)).max())
+                check(e <= 1e-3, f'CG residual differs at chains={ch} '
+                                 f'rows={rw} n={n_t}: {e:.2e}')
+                for iters in (1, 2):
+                    b = (a[0], torch.zeros_like(a[1]), *a[2:6], iters)
+                    got = icar_cg_solve_cuda(*b, return_resid=True)
+                    want = icar_cg_solve_spectral(*b, return_resid=True)
+                    torch.cuda.synchronize()
+                    at = f'chains={ch} rows={rw} n={n_t} iters={iters}'
+                    for g, w in zip(got[:2], want[:2]):
+                        e = float((g - w).abs().max() / w.abs().max())
+                        shape_err = max(shape_err, e)
+                        check(e <= 1e-4, f'starved CG x differs at {at}: '
+                                         f'{e:.2e}')
+                    starved_min = min(starved_min, float(want[2].min()))
+                    check(float(want[2].min()) >= 1e-4,
+                          f'starved solve converged at {at}')
+                    e = float(((got[2] - want[2]).abs() / want[2]).max())
+                    starved_err = max(starved_err, e)
+                    check(e <= 1e-3, f'starved CG residual differs at {at}: '
+                                     f'{e:.2e}')
+    print(f'    36 shapes (chains 1/3/64/200 x rows 2/6/8 x n '
+          f'{s.n}/500/333), each converged and starved (1, 2 iterations): '
+          f'worst x error {shape_err:.2e} of max |x|, worst starved '
+          f'residual error {starved_err:.2e} of itself (least starved '
+          f'residual {starved_min:.3e})')
+    # one launch is one result: twice the same bits; and a chain's outputs
+    # depend on that chain alone, whatever the others hold and however
+    # many there are
+    tau = 0.5 + torch.rand(CHAINS, device=dev, generator=gen)
+    full = icar_cg_solve_cuda(rhs, warm, omega_b, tau, u_eig, s_eig, 8,
+                              return_resid=True)
+    again = icar_cg_solve_cuda(rhs, warm, omega_b, tau, u_eig, s_eig, 8,
+                               return_resid=True)
+    check(all(torch.equal(a, b) for a, b in zip(full, again)),
+          'two CG launches differ')
+    keep = slice(5, 8)
+    few = icar_cg_solve_cuda(rhs[keep], warm[keep], omega_b[keep], tau[keep],
+                             u_eig, s_eig, 8, return_resid=True)
+    check(all(torch.equal(a[keep], b) for a, b in zip(full, few)),
+          'a chain depends on the chain count')
+    other = [t.clone() for t in (rhs, warm, omega_b, tau)]
+    for t in other:
+        fresh = torch.rand(t.shape, device=dev, generator=gen) + 0.05
+        fresh[keep] = t[keep]
+        t.copy_(fresh)
+    mixed = icar_cg_solve_cuda(*other, u_eig, s_eig, 8, return_resid=True)
+    check(all(torch.equal(a[keep], b[keep]) for a, b in zip(full, mixed)),
+          'a chain depends on the other chains')
+    check(not torch.equal(full[0][:5], mixed[0][:5]),
+          'the other chains did not change')
+    print('    two launches bit-identical; chains 5-7 bit-identical alone '
+          '(3 chains) and among 61 other chains')
     tau = torch.full((CHAINS,), 1.0, device=dev)
     cg_ms = time_ms(lambda: icar_cg_solve_cuda(
         rhs, warm, omega_b, tau, u_eig, s_eig, 8, return_resid=True), 20)
@@ -279,9 +371,16 @@ def main():
     cg_ops = products * CHAINS * rows * n * n * 2
     cg_bytes = 4 * (n * n + n + 4 * CHAINS * rows * n + CHAINS * n
                     + 2 * CHAINS)
-    cg_bound = max(cg_bytes / PEAK_BYTES, cg_ops / PEAK_F32) * 1e3
+    # the kernel runs every float32 multiply-add as three TF32 tensor-core
+    # operations, so bound_ms counts 3 x the operations at the TF32 tensor
+    # rate, the unit the kernel uses; the same operations once at the
+    # float32 non-tensor rate (a CUDA-core design's bound) are beside it
+    cg_bound = max(cg_bytes / PEAK_BYTES, 3 * cg_ops / PEAK_TF32) * 1e3
+    cg_bound_f32 = max(cg_bytes / PEAK_BYTES, cg_ops / PEAK_F32) * 1e3
     print(f'    kernel {cg_ms:.4f} ms, plain (torch-op CG) '
-          f'{cg_plain_ms:.4f} ms, bound {cg_bound:.5f} ms')
+          f'{cg_plain_ms:.4f} ms, bound {cg_bound:.5f} ms (3 TF32 '
+          f'operations per multiply-add at the tensor rate; '
+          f'{cg_bound_f32:.5f} ms at the float32 non-tensor rate)')
     done(t0)
     if args.stop_after < 5:
         return
@@ -357,8 +456,7 @@ def main():
         replaces='occuspytial_tpu/ops/pallas_pg.py:205 (K1), '
                  'occuspytial_tpu/ops/pallas_pg.py:191 (K2)',
         launches=pg_launches, max_abs_err=pg_err, mismatch_share=mismatch,
-        ms=pg_ms, wrapper_ms=pg_wrapper_ms, plain_ms=pg_plain_ms,
-        bound_ms=pg_bound,
+        ms=pg_ms, plain_ms=pg_plain_ms, bound_ms=pg_bound,
         bound_by='operations' if pg_ops / PEAK_F32 > pg_bytes / PEAK_BYTES
         else 'bytes',
     ))
@@ -368,8 +466,10 @@ def main():
         replaces='occuspytial_tpu/ops/pallas_cg.py:56',
         launches=cg_launches, max_abs_err=cg_err, ms=cg_ms,
         plain_ms=cg_plain_ms, bound_ms=cg_bound,
-        bound_by='operations' if cg_ops / PEAK_F32 > cg_bytes / PEAK_BYTES
-        else 'bytes',
+        bound_ms_is='3 TF32 operations per multiply-add at the tensor rate',
+        bound_float32_ms=cg_bound_f32,
+        bound_by='operations'
+        if 3 * cg_ops / PEAK_TF32 > cg_bytes / PEAK_BYTES else 'bytes',
     ))
     done(t0)
     print(json.dumps({'kernels': kernels}))

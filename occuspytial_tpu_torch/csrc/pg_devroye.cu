@@ -1,28 +1,39 @@
-// Exact Polya-Gamma PG(1, z) draws by Devroye rejection, one thread per lane.
+// Exact Polya-Gamma PG(1, z) draws by Devroye rejection, from z alone.
 //
 // Replaces the Pallas kernels of occuspytial_tpu/ops/pallas_pg.py:
 // _pg_kernel_grouped (the packed TPU default, launched by
 // _pg_packed_grouped) and _pg_kernel (launched by _pg_rows), both running
-// the rejection loop _run_rejection. On the TPU a block of lanes runs its
-// rounds in lockstep and reseeds its core generator per (chain, round); here
-// each thread loops over its own rounds until it accepts or reaches 64, and
-// draws round k's 9 uniforms from Threefry-2x32 on (its chain's subkey,
-// counter (k, 5 * lane + j)), j < 5. That counter-based stream gives both
-// TPU contracts at once: a chain's draws depend on its own key alone, and a
-// lane's value is its first accepted proposal whatever the other lanes do.
-// The bits are those of occuspytial_tpu_torch/rng.py, so the plain torch
-// sampler (ops/polyagamma.py:pg_devroye) and this kernel agree draw for draw
-// up to the rounding of the transcendental functions.
+// the rejection loop _run_rejection on the mixture inputs of _pg_inputs. On
+// the TPU a block of lanes runs its rounds in lockstep and reseeds its core
+// generator per (chain, round); here round k of lane l of chain b draws its
+// 9 uniforms from Threefry-2x32 on (the chain's subkey, counter
+// (k, 5 l + j)), j < 5. That counter-based stream gives both TPU contracts
+// at once: a chain's draws depend on its own key alone, and a lane's value
+// is its first accepted proposal whatever the other lanes do. The bits are
+// those of occuspytial_tpu_torch/rng.py, so the plain torch sampler
+// (ops/polyagamma.py:pg_devroye) and this kernel agree draw for draw up to
+// the rounding of the transcendental functions.
 //
-// What bounds it on the card: operations. Each round costs ~5 Threefry
-// blocks (~200 integer ops) and ~10 transcendental calls per lane, against
-// 16 bytes read and 4 written per lane; a lane takes ~2 rounds on average.
-// The design keeps every intermediate in registers and reads each input
-// once. Pitfall left for a later change: warp divergence in the rejection
-// tail (a warp runs until its slowest lane accepts, and the two proposal
-// branches diverge inside a round).
+// Design. One launch takes z and the int64 key words and does everything:
+//  1. Inputs in the kernel. c = |z| / 2, k_exp = pi^2/8 + c^2/2 and the
+//     mixture mass `ratio` are computed here, so a lane reads 4 bytes and
+//     writes 4. log Phi(x) at the strongly negative argument of the mass is
+//     log(erfcx(-x / sqrt 2) / 2) - x^2 / 2, which does not underflow.
+//  2. Lanes are not tied to threads. A warp owns a chunk of 128 lanes;
+//     it first computes the chunk's c and ratio into shared memory (all
+//     threads busy), then runs rejection rounds in which a thread whose lane
+//     accepted takes the chunk's next pending lane (__ballot_sync and a
+//     warp-uniform counter). The warp stays full until the chunk is nearly
+//     done, instead of idling until the slowest of 32 lanes accepts. Any
+//     thread can compute any (lane, round), so the values do not change.
+//  3. A round generates only what the lane's path uses: Threefry blocks 0
+//     and 4 always (branch choice and tail proposal, series test), blocks
+//     1-2 for the squeeze body, 2-3 for the inverse-Gaussian body.
 //
-// Built without --use_fast_math: logf, expf, sqrtf and cosf are the
+// What bounds it on the card: operations (integer Threefry rounds and
+// transcendental calls); bytes are 8 per lane.
+//
+// Built without --use_fast_math: logf, expf, sqrtf, cosf and erfcxf are the
 // IEEE-accurate CUDA math library versions (no __logf/__expf intrinsics),
 // and divisions are IEEE-rounded.
 
@@ -31,6 +42,9 @@
 
 namespace {
 
+constexpr int kChunk = 128;  // lanes a warp owns
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr float kT = 0.64f;
 constexpr int kMaxRounds = 64;
 constexpr int kSeries = 4;
@@ -40,6 +54,10 @@ constexpr float kPi = (float)kPiD;
 // Python-float constants are
 constexpr float kPiSq = (float)(kPiD * kPiD);
 constexpr float kPiSq8 = (float)(kPiD * kPiD / 8.0);
+constexpr float kInvSqrt2 = 0.70710678118654752440f;
+constexpr float kLog2 = 0.69314718055994530942f;
+
+static_assert(kChunk >= 32 && kChunk % 32 == 0, "a chunk is whole warps");
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
     return (x << r) | (x >> (32 - r));
@@ -70,6 +88,30 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t b) {
     return 1.0f - (float)(b >> 9) * 1.1920928955078125e-7f;
 }
 
+// log of the standard normal distribution function.
+__device__ __forceinline__ float log_ndtr(float x) {
+    if (x < 0.0f)
+        return logf(0.5f * erfcxf(-x * kInvSqrt2)) - 0.5f * x * x;
+    return log1pf(-0.5f * erfcf(x * kInvSqrt2));
+}
+
+__device__ __forceinline__ float logaddexp(float a, float b) {
+    return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+}
+
+// P(choose the truncated-exponential branch) for |z|/2 = c
+// (ops/polyagamma.py:_mass_texpon).
+__device__ __forceinline__ float mass_texpon(float c) {
+    const float k = kPiSq8 + 0.5f * c * c;
+    const float log_p = logf(kPi / (2.0f * k)) - k * kT;
+    const float rt = 1.25f;  // 1 / sqrt(t)
+    const float a1 = rt * (kT * c - 1.0f);
+    const float a2 = -rt * (kT * c + 1.0f);
+    const float log_q =
+        kLog2 + logaddexp(-c + log_ndtr(a1), c + log_ndtr(a2));
+    return expf(log_p - logaddexp(log_p, log_q));
+}
+
 __device__ __forceinline__ bool series_accept(float x, float v) {
     const bool small = x <= kT;
     const float log_small_base = 1.5f * logf(2.0f / (kPi * x));
@@ -94,82 +136,164 @@ __device__ __forceinline__ bool series_accept(float x, float v) {
     return accepted || !(accepted || rejected);
 }
 
-__global__ void pg_devroye_kernel(const uint32_t* __restrict__ subkeys,
-                                  const float* __restrict__ c_in,
-                                  const float* __restrict__ ratio_in,
-                                  const float* __restrict__ kexp_in,
-                                  float* __restrict__ out,
-                                  int chains, int m) {
-    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= (long long)chains * m) return;
-    const int chain = (int)(idx / m);
-    const uint32_t lane = (uint32_t)(idx - (long long)chain * m);
-    const uint32_t k0 = subkeys[2 * chain], k1 = subkeys[2 * chain + 1];
-    const float c = c_in[idx], ratio = ratio_in[idx], k_exp = kexp_in[idx];
+// One lane's sampler state, held by whichever thread runs it now.
+struct Lane {
+    uint32_t k0, k1, lane;
+    float c, ratio, k_exp, x;
+    int k;
+    bool committed, is_exp;
 
-    const bool use_squeeze = c < (1.0f / kT);
-    const float mu = 1.0f / fmaxf(c, 1e-30f);
-    const float half_csq = 0.5f * c * c;
+    __device__ __forceinline__ void start(const long long* subkeys,
+                                          long long key_stride,
+                                          long long idx, int m, float c_in,
+                                          float ratio_in) {
+        const long long chain = idx / m;
+        lane = (uint32_t)(idx - chain * m);
+        // the key words are uint32 values held in int64
+        k0 = (uint32_t)subkeys[key_stride * chain];
+        k1 = (uint32_t)subkeys[key_stride * chain + 1];
+        c = c_in;
+        ratio = ratio_in;
+        // rounded as the plain version's separate multiply and add
+        k_exp = __fadd_rn(kPiSq8, __fmul_rn(__fmul_rn(0.5f, c), c));
+        x = kT;
+        k = 0;
+        committed = false;
+        is_exp = false;
+    }
 
-    float x = kT;
-    bool committed = false, is_exp = false;
-    for (int k = 0; k < kMaxRounds; ++k) {
-        float u[10];
-#pragma unroll
-        for (int j = 0; j < 5; ++j) {
-            uint32_t x0 = (uint32_t)k, x1 = lane * 5u + (uint32_t)j;
-            threefry2x32(k0, k1, x0, x1);
-            u[2 * j] = bits_to_uniform(x0);
-            u[2 * j + 1] = bits_to_uniform(x1);
-        }
-        if (!committed) is_exp = u[0] < ratio;
+    __device__ __forceinline__ void block(int j, float& ua, float& ub) const {
+        uint32_t x0 = (uint32_t)k, x1 = lane * 5u + (uint32_t)j;
+        threefry2x32(k0, k1, x0, x1);
+        ua = bits_to_uniform(x0);
+        ub = bits_to_uniform(x1);
+    }
 
-        // branch A: exponential tail on (t, inf)
-        const float x_exp = kT + (-logf(u[1])) / k_exp;
-
-        // branch B1: squeeze sampler for the truncated IG body (c < 1/t)
-        const float e1 = -logf(u[2]);
-        const float e2 = -logf(u[3]);
-        bool ok_sq = e1 * e1 <= 2.0f * e2 / kT;
+    // branch B1: squeeze sampler for the truncated IG body (c < 1/t)
+    __device__ __forceinline__ bool squeeze(float u2, float u3, float u4,
+                                            float& x_new) const {
+        const float half_csq = 0.5f * c * c;
+        const float e1 = -logf(u2);
+        const float e2 = -logf(u3);
+        const bool ok = e1 * e1 <= 2.0f * e2 / kT;
         const float t1 = 1.0f + kT * e1;
-        const float x_sq = kT / (t1 * t1);
-        ok_sq = ok_sq && (u[4] < expf(-x_sq * half_csq));
+        x_new = kT / (t1 * t1);
+        return ok && (u4 < expf(-x_new * half_csq));
+    }
 
-        // branch B2: Michael-Schucany-Haas IG transform (c >= 1/t)
-        const float nrm = sqrtf(-2.0f * logf(u[5])) * cosf((2.0f * kPi) * u[6]);
+    // branch B2: Michael-Schucany-Haas IG transform (c >= 1/t)
+    __device__ __forceinline__ bool inverse_gaussian(float u5, float u6,
+                                                     float u7,
+                                                     float& x_new) const {
+        const float mu = 1.0f / fmaxf(c, 1e-30f);
+        const float nrm = sqrtf(-2.0f * logf(u5)) * cosf((2.0f * kPi) * u6);
         const float y0 = nrm * nrm;
         const float mu_y = mu * y0;
-        float x_ig = mu + 0.5f * mu * (mu_y - sqrtf(4.0f * mu_y + mu_y * mu_y));
-        if (u[7] > mu / (mu + x_ig)) x_ig = mu * mu / x_ig;
-        const bool ok_ig = x_ig <= kT;
+        float x_ig =
+            mu + 0.5f * mu * (mu_y - sqrtf(4.0f * mu_y + mu_y * mu_y));
+        if (u7 > mu / (mu + x_ig)) x_ig = mu * mu / x_ig;
+        x_new = x_ig;
+        return x_ig <= kT;
+    }
 
-        const float x_body = use_squeeze ? x_sq : x_ig;
-        const bool ok_body = use_squeeze ? ok_sq : ok_ig;
-        const float x_new = is_exp ? x_exp : x_body;
-        const bool valid = is_exp || ok_body;
-        if (valid && series_accept(x_new, u[8])) {
+    // Runs round k; true when the lane is finished (accepted, or out of
+    // rounds with x left at t).
+    __device__ __forceinline__ bool round() {
+        const bool use_squeeze = c < (1.0f / kT);
+        float u0, u1, u2, u3, u4, u5, u6, u7, u8, u9;
+        float x_new;
+        bool valid;
+        if (!committed || is_exp) {
+            block(0, u0, u1);
+            if (!committed) is_exp = u0 < ratio;
+        }
+        if (is_exp) {
+            // branch A: exponential tail on (t, inf)
+            x_new = kT + (-logf(u1)) / k_exp;
+            valid = true;
+        } else {
+            block(2, u4, u5);
+            if (use_squeeze) {
+                block(1, u2, u3);
+                valid = squeeze(u2, u3, u4, x_new);
+            } else {
+                block(3, u6, u7);
+                valid = inverse_gaussian(u5, u6, u7, x_new);
+            }
+        }
+        block(4, u8, u9);
+        if (valid && series_accept(x_new, u8)) {
             x = x_new;
-            break;
+            return true;
         }
         committed = !valid;
+        return ++k >= kMaxRounds;
     }
-    out[idx] = 0.25f * x;
+};
+
+__global__ void __launch_bounds__(kThreads)
+pg_devroye_kernel(const long long* __restrict__ subkeys,
+                  long long key_stride, const float* __restrict__ z,
+                  float* __restrict__ out, int chains, int m) {
+    __shared__ float s_c[kWarps][kChunk];
+    __shared__ float s_ratio[kWarps][kChunk];
+    const unsigned full = 0xffffffffu;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const long long total = (long long)chains * m;
+    const long long base = ((long long)blockIdx.x * kWarps + warp) * kChunk;
+    if (base >= total) return;  // the whole warp leaves
+    const int count = (int)(total - base < kChunk ? total - base : kChunk);
+
+    // the chunk's mixture inputs, every thread busy
+    for (int i = lane; i < count; i += 32) {
+        const float c = 0.5f * fabsf(z[base + i]);
+        s_c[warp][i] = c;
+        s_ratio[warp][i] = mass_texpon(c);
+    }
+    __syncwarp();
+
+    // rejection rounds; a thread whose lane finished takes the next one
+    int next = 32;
+    int item = lane < count ? lane : -1;
+    Lane st;
+    if (item >= 0)
+        st.start(subkeys, key_stride, base + item, m, s_c[warp][item],
+                 s_ratio[warp][item]);
+    while (__any_sync(full, item >= 0)) {
+        bool finished = false;
+        if (item >= 0) {
+            finished = st.round();
+            if (finished) out[base + item] = 0.25f * st.x;
+        }
+        const unsigned need = __ballot_sync(full, finished);
+        if (finished) {
+            item = next + __popc(need & ((1u << lane) - 1u));
+            if (item < count)
+                st.start(subkeys, key_stride, base + item, m,
+                         s_c[warp][item], s_ratio[warp][item]);
+            else
+                item = -1;
+        }
+        next += __popc(need);
+    }
 }
 
 }  // namespace
 
-extern "C" int pg_devroye_launch(const void* subkeys, const void* c,
-                                 const void* ratio, const void* k_exp,
-                                 void* out, int chains, int m,
+// `subkeys` (chains, 2) int64 key words, chain b's pair at
+// subkeys[b * key_stride]; `z` and `out` (chains, m) contiguous float32;
+// all device pointers. Returns a CUDA error code (0 on success).
+extern "C" int pg_devroye_launch(const void* subkeys, long long key_stride,
+                                 const void* z, void* out, int chains, int m,
                                  void* stream) {
     const long long total = (long long)chains * m;
     if (total == 0) return 0;
-    const int threads = 256;
-    const long long blocks = (total + threads - 1) / threads;
-    pg_devroye_kernel<<<(unsigned)blocks, threads, 0,
+    const long long per_block = (long long)kWarps * kChunk;
+    const long long blocks = (total + per_block - 1) / per_block;
+    pg_devroye_kernel<<<(unsigned)blocks, kThreads, 0,
                         (cudaStream_t)stream>>>(
-        (const uint32_t*)subkeys, (const float*)c, (const float*)ratio,
-        (const float*)k_exp, (float*)out, chains, m);
+        (const long long*)subkeys, key_stride, (const float*)z, (float*)out,
+        chains, m);
     return (int)cudaGetLastError();
 }
 

@@ -81,8 +81,11 @@ def _mm(v, mat):
     changes: one solve then agrees to float32 rounding (the 1e-4
     tolerance of the CG tests), and a long run, whose accept/reject
     decisions amplify rounding, gives chain c the same distribution but
-    not the same draws. On the CPU a chain's draws are bit for bit the
-    same whatever the chain count (tests/test_torch_logit.py).
+    not the same draws. On the CPU the same holds between row counts
+    that the library blocks alike (2 and 3 chains of 6 rows:
+    tests/test_torch_logit.py), not between any two. The CUDA kernel of
+    :mod:`.cuda_cg` fixes its order of sums and gives a chain the same bits
+    at every chain count.
     """
     return torch.matmul(v.to(mat.dtype), mat).to(v.dtype)
 

@@ -2,9 +2,13 @@
 
 Counterpart of the JAX package's ``ops/pallas_cg.py``
 (``icar_cg_solve_fused``, ``cg_impl='pallas'``): the whole fixed-iteration
-PCG of :func:`.cg.icar_cg_solve_spectral` in one launch of
-``csrc/icar_cg.cu``, one block per chain with the chain's rows in shared
-memory. On a CPU tensor the wrapper runs the plain torch solve.
+PCG of :func:`.cg.icar_cg_solve_spectral` in one cooperative launch of
+``csrc/icar_cg.cu``. The kernel treats every chain's rows as one
+(chains * rows, n) batch against one U, tiles each product over the card's
+SMs and keeps its vectors in a scratch buffer that this wrapper allocates.
+A chain's outputs are bit-identical from launch to launch and whatever
+the other chains or the chain count are. On a CPU tensor the wrapper runs
+the plain torch solve.
 """
 
 import ctypes
@@ -14,19 +18,19 @@ import torch
 from .. import _build
 from .cg import icar_cg_solve_spectral
 
-#: rows per chain the kernel is instantiated for
-MAX_ROWS = 8
+#: the kernel indexes its (chains * rows, n) vectors with 32-bit integers
+MAX_ELEMENTS = 2 ** 31 - 1
 
-#: dynamic shared memory a block may use on Hopper (227 KB), less the
-#: kernel's static reduction scratch
-_SMEM_LIMIT = 232448 - 2048
-
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def shared_bytes(rows, n):
-    """Dynamic shared memory the kernel needs for ``rows`` rows of n."""
-    return (5 * rows + 3) * n * 4
+def _library():
+    lib = _build.load('icar_cg')
+    lib.icar_cg_launch.argtypes = _ARGTYPES
+    lib.icar_cg_launch.restype = ctypes.c_int
+    lib.icar_cg_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.icar_cg_scratch_floats.restype = ctypes.c_longlong
+    return lib
 
 
 def icar_cg_solve_cuda(rhs, warm_spec, omega, tau, eigvecs, eigvals, iters,
@@ -35,8 +39,9 @@ def icar_cg_solve_cuda(rhs, warm_spec, omega, tau, eigvecs, eigvals, iters,
 
     ``rhs``/``warm_spec`` (chains, rows, n), ``omega`` (chains, n),
     ``tau`` (chains,). CUDA tensors go through the kernel (float32
-    only); CPU tensors through the plain solve. Each kernel launch adds
-    one to ``icar_cg_solve_cuda.launches``.
+    only, fewer than 2**31 elements in ``rhs``); CPU tensors through the
+    plain solve. Each kernel launch adds one to
+    ``icar_cg_solve_cuda.launches``.
     """
     if rhs.device.type == 'cpu':
         return icar_cg_solve_spectral(
@@ -50,17 +55,20 @@ def icar_cg_solve_cuda(rhs, warm_spec, omega, tau, eigvecs, eigvals, iters,
             f'the CUDA CG kernel takes float32, got {rhs.dtype}; run '
             'float64 on the CPU'
         )
+    if rhs.dim() != 3:
+        raise ValueError('expected rhs (chains, rows, n)')
     chains, rows, n = rhs.shape
-    if not 1 <= rows <= MAX_ROWS:
-        raise ValueError(f'rows per chain must lie in [1, {MAX_ROWS}]')
-    if shared_bytes(rows, n) > _SMEM_LIMIT:
+    if rhs.numel() > MAX_ELEMENTS:
         raise ValueError(
-            f'n={n} with {rows} rows needs {shared_bytes(rows, n)} bytes '
-            f'of shared memory per block; the kernel holds at most '
-            f'{_SMEM_LIMIT}'
+            f'rhs has {rhs.numel()} elements; the kernel indexes at most '
+            f'{MAX_ELEMENTS}'
         )
     if warm_spec.shape != rhs.shape or omega.shape != (chains, n):
         raise ValueError('warm_spec/omega shapes do not match rhs')
+    if tuple(eigvecs.shape) != (n, n) or tuple(eigvals.shape) != (n,):
+        raise ValueError('eigvecs/eigvals shapes do not match rhs')
+    if int(iters) < 0:
+        raise ValueError('iters must not be negative')
     dev = rhs.device
 
     def f32(t):
@@ -72,15 +80,18 @@ def icar_cg_solve_cuda(rhs, warm_spec, omega, tau, eigvecs, eigvals, iters,
     x_site = torch.empty_like(rhs_c)
     x_spec = torch.empty_like(rhs_c)
     rel = torch.empty(chains, device=dev, dtype=torch.float32)
-    lib = _build.load('icar_cg')
-    lib.icar_cg_launch.argtypes = _ARGTYPES
-    lib.icar_cg_launch.restype = ctypes.c_int
-    err = lib.icar_cg_launch(
-        u.data_ptr(), s.data_ptr(), rhs_c.data_ptr(), x0.data_ptr(),
-        om.data_ptr(), tau_c.data_ptr(), x_site.data_ptr(),
-        x_spec.data_ptr(), rel.data_ptr(), chains, rows, n, int(iters),
-        torch.cuda.current_stream(dev).cuda_stream,
+    lib = _library()
+    scratch = torch.empty(
+        lib.icar_cg_scratch_floats(chains, rows, n), device=dev,
+        dtype=torch.float32,
     )
+    with torch.cuda.device(dev):
+        err = lib.icar_cg_launch(
+            u.data_ptr(), s.data_ptr(), rhs_c.data_ptr(), x0.data_ptr(),
+            om.data_ptr(), tau_c.data_ptr(), x_site.data_ptr(),
+            x_spec.data_ptr(), rel.data_ptr(), scratch.data_ptr(), chains,
+            rows, n, int(iters), torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(lib, 'icar_cg', err)
     icar_cg_solve_cuda.launches += 1
     if return_resid:

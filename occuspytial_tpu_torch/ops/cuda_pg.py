@@ -3,10 +3,12 @@
 Counterpart of the JAX package's ``ops/pallas_pg.py``: both of its
 option names (``pg_method='pallas'`` for ``_pg_kernel`` and
 ``'pallas_packed'`` for ``_pg_kernel_grouped``) map to the one kernel in
-``csrc/pg_devroye.cu``, one thread per (chain, lane), whose counter-based
-stream keeps the per-chain key contract of both. The z-dependent mixture
-quantities are computed here with torch ops, as ``_pg_inputs`` does in
-XLA. On a CPU tensor the wrapper runs the plain sampler
+``csrc/pg_devroye.cu``, whose counter-based stream keeps the per-chain key
+contract of both. The kernel takes ``z`` and the key words as they are:
+the mixture quantities that ``_pg_inputs`` computes in XLA
+(:func:`.polyagamma.pg_inputs` here) are computed inside it, in the form
+of :func:`.polyagamma.mass_texpon_erfcx`, so a draw is one launch with no
+torch op before it. On a CPU tensor the wrapper runs the plain sampler
 :func:`.polyagamma.pg_devroye`, which draws the same uniforms.
 """
 
@@ -15,10 +17,10 @@ import ctypes
 import torch
 
 from .. import _build
-from .polyagamma import pg_devroye, pg_inputs
+from .polyagamma import pg_devroye
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def pg_devroye_cuda(subkeys, z):
@@ -40,36 +42,27 @@ def pg_devroye_cuda(subkeys, z):
         )
     if z.dim() != 2 or subkeys.shape != (z.shape[0], 2):
         raise ValueError('expected z (chains, m) and subkeys (chains, 2)')
-    c, ratio, k_exp = (t.contiguous() for t in pg_inputs(z))
-    # each uint32 key word as the int32 of the same bit pattern (the
-    # kernel reads uint32)
-    sk = subkeys.to(z.device)
-    keys32 = torch.where(sk >= 2 ** 31, sk - 2 ** 32, sk).to(
-        torch.int32).contiguous()
-    return launch(keys32, c, ratio, k_exp)
-
-
-def launch(keys32, c, ratio, k_exp):
-    """One launch of the kernel on prepared inputs: int32 key words
-    (chains, 2) and the contiguous float32 (chains, m) mixture inputs of
-    :func:`.polyagamma.pg_inputs`. Returns the draws."""
-    chains, m = c.shape
-    for t in (c, ratio, k_exp):
-        if (t.shape != c.shape or t.dtype != torch.float32
-                or t.device != c.device or not t.is_contiguous()):
-            raise ValueError('inputs must be contiguous float32 (chains, m)')
-    if (keys32.shape != (chains, 2) or keys32.dtype != torch.int32
-            or keys32.device != c.device or not keys32.is_contiguous()):
-        raise ValueError('keys32 must be contiguous int32 (chains, 2)')
-    out = torch.empty_like(c)
+    if subkeys.dtype != torch.int64 or subkeys.device != z.device:
+        raise ValueError('subkeys must be int64 words on the device of z')
+    if z.numel() >= 2 ** 31:
+        raise ValueError('z must hold fewer than 2**31 elements')
+    chains, m = z.shape
+    # z is contiguous on the sampler's path, and the kernel reads the key
+    # words through their row stride (they are a slice of the step's
+    # words), so no kernel runs here
+    z = z.contiguous()
+    if subkeys.stride(1) != 1:
+        subkeys = subkeys.contiguous()
+    out = torch.empty_like(z)
     lib = _build.load('pg_devroye')
     lib.pg_devroye_launch.argtypes = _ARGTYPES
     lib.pg_devroye_launch.restype = ctypes.c_int
-    err = lib.pg_devroye_launch(
-        keys32.data_ptr(), c.data_ptr(), ratio.data_ptr(),
-        k_exp.data_ptr(), out.data_ptr(), chains, m,
-        torch.cuda.current_stream(c.device).cuda_stream,
-    )
+    with torch.cuda.device(z.device):
+        err = lib.pg_devroye_launch(
+            subkeys.data_ptr(), subkeys.stride(0), z.data_ptr(),
+            out.data_ptr(), chains, m,
+            torch.cuda.current_stream(z.device).cuda_stream,
+        )
     _build.check(lib, 'pg_devroye', err)
     pg_devroye_cuda.launches += 1
     return out

@@ -58,6 +58,39 @@ def _mass_texpon(c):
     return torch.exp(log_p - torch.logaddexp(log_p, log_q))
 
 
+def _log_ndtr_erfcx(x):
+    """log Phi(x): for x < 0 as log(erfcx(-x / sqrt 2) / 2) - x^2 / 2,
+    which keeps its digits where Phi(x) underflows."""
+    neg = x < 0
+    xn = torch.where(neg, x, torch.zeros_like(x))
+    xp = torch.where(neg, torch.zeros_like(x), x)
+    lo = torch.log(0.5 * torch.special.erfcx(-xn * math.sqrt(0.5))) \
+        - 0.5 * xn * xn
+    hi = torch.log1p(-0.5 * torch.erfc(xp * math.sqrt(0.5)))
+    return torch.where(neg, lo, hi)
+
+
+def _logaddexp_log1p(a, b):
+    return torch.maximum(a, b) + torch.log1p(torch.exp(-torch.abs(a - b)))
+
+
+def mass_texpon_erfcx(c):
+    """:func:`_mass_texpon` as the CUDA kernel computes it
+    (``csrc/pg_devroye.cu:mass_texpon``): the same formula with
+    ``log_ndtr`` and ``logaddexp`` written out in ``erfcx``, ``erfc``,
+    ``log1p`` and ``exp``, the functions CUDA's math library has. Kept in
+    torch ops so that the CPU tests hold the kernel's arithmetic."""
+    k = _HALF_PI_SQ + 0.5 * c * c
+    log_p = torch.log(_rdiv(math.pi, 2.0 * k)) - k * _T
+    rt = 1.0 / math.sqrt(_T)
+    a1 = rt * (_T * c - 1.0)
+    a2 = -rt * (_T * c + 1.0)
+    log_q = math.log(2.0) + _logaddexp_log1p(
+        -c + _log_ndtr_erfcx(a1), c + _log_ndtr_erfcx(a2)
+    )
+    return torch.exp(log_p - _logaddexp_log1p(log_p, log_q))
+
+
 def pg_inputs(z):
     """The z-dependent mixture quantities ``(c, ratio, k_exp)``."""
     c = 0.5 * torch.abs(z)

@@ -48,6 +48,168 @@ def test_pg_kernel_matches_plain(dev):
         pg_devroye_cuda(sub, z.double())
 
 
+@pytest.mark.parametrize('m', [1, 31, 128, 1000, 4034])
+def test_pg_fused_entry_takes_z_and_strided_keys(dev, m):
+    """The kernel computes its mixture inputs from z and reads the key
+    words through their row stride (on the sampler's path they are a
+    slice of the step's words): one launch, the plain sampler's draws,
+    at lane counts on and off the 128-lane chunks."""
+    words = rng.words(rng.chain_keys(9, 5, rng.RUN, dev), 2, 0, 6)
+    sub = words[:, 2:4]
+    assert not sub.is_contiguous()
+    gen = torch.Generator(device=dev).manual_seed(m)
+    z = 6.0 * torch.randn((5, m), device=dev, generator=gen)
+    z[0, 0] = 0.0
+    z[-1, -1] = 80.0
+    before = pg_devroye_cuda.launches
+    got = pg_devroye_cuda(sub, z)
+    torch.cuda.synchronize()
+    assert pg_devroye_cuda.launches == before + 1
+    want = tpg.pg_devroye(sub.contiguous(), z)
+    assert bool(torch.isfinite(got).all()) and bool((got > 0).all())
+    rel = ((got - want).abs() / want.abs()).cpu().numpy()
+    # the mass that picks a lane's branch comes from other library
+    # functions in the kernel (erfcx) than in torch (log_ndtr): at most
+    # one lane in 1000 may take another branch
+    assert (rel <= 1e-5).mean() >= 0.999
+    with pytest.raises(ValueError):
+        pg_devroye_cuda(sub.to(torch.int32), z)
+
+
+def _cg_system(dev, n, seed=0):
+    """U, S of a lattice ICAR precision (n = 200) or, for any other n, a
+    random orthogonal U with eigenvalues in [0, 8], one of them 0."""
+    if n == 200:
+        q = lattice_precision(10, 20).toarray().astype(np.float64)
+        s, u, _ = icar_spectral(q)
+        return (torch.as_tensor(u, dtype=torch.float32, device=dev),
+                torch.as_tensor(s, dtype=torch.float32, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.linalg.qr(torch.randn((n, n), device=dev, generator=gen))[0]
+    s = 8.0 * torch.rand(n, device=dev, generator=gen)
+    s[0] = 0.0
+    return u.contiguous(), s
+
+
+def _cg_args(dev, chains, rows, n, seed=0):
+    u, s = _cg_system(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [
+        torch.randn((chains, rows, n), device=dev, generator=gen),
+        0.1 * torch.randn((chains, rows, n), device=dev, generator=gen),
+        0.05 + 0.25 * torch.rand((chains, n), device=dev, generator=gen),
+        0.5 + torch.rand(chains, device=dev, generator=gen),
+        u, s, 8,
+    ]
+
+
+@pytest.mark.parametrize('n', [200, 333])
+@pytest.mark.parametrize('rows', [2, 6, 8])
+@pytest.mark.parametrize('chains', [1, 3, 64, 200])
+def test_cg_kernel_shapes_off_the_tile_grid(dev, chains, rows, n):
+    """Chain and row counts on and off the 48-row tiles, n off the
+    64-column tiles (200) and not a multiple of 4 (333, staged by 4-byte
+    copies): the kernel agrees with the plain solve as at the main
+    shape, converged and, cut short after 1 and 2 iterations from a zero
+    start, on residuals that are far from rounding (above 1e-4, where a
+    converged one reads 1e-7) and are held to 1e-3 of themselves."""
+    args = _cg_args(dev, chains, rows, n)
+    got = icar_cg_solve_cuda(*args, return_resid=True)
+    want = tcg.icar_cg_solve_spectral(*args, return_resid=True)
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert float(((got[2] - want[2]).abs()
+                  / (want[2].abs() + 1e-3)).max()) <= 1e-3
+    args[1] = torch.zeros_like(args[1])
+    for iters in (1, 2):
+        args[6] = iters
+        got = icar_cg_solve_cuda(*args, return_resid=True)
+        want = tcg.icar_cg_solve_spectral(*args, return_resid=True)
+        for g, w in zip(got[:2], want[:2]):
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+        assert float(want[2].min()) >= 1e-4
+        assert float(((got[2] - want[2]).abs() / want[2]).max()) <= 1e-3
+
+
+@pytest.mark.parametrize('iters', [0, 1, 3])
+def test_cg_kernel_iteration_counts(dev, iters):
+    """No iteration (the warm start's own residual), one and a few."""
+    args = _cg_args(dev, 5, 6, 200)
+    args[6] = iters
+    got = icar_cg_solve_cuda(*args, return_resid=True)
+    want = tcg.icar_cg_solve_spectral(*args, return_resid=True)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_cg_kernel_takes_tensors_off_16_byte_alignment(dev):
+    """Views that start 4 bytes into their storage are staged by 4-byte
+    copies, with the same bits as the aligned 16-byte path."""
+    args = _cg_args(dev, 5, 6, 200)
+    want = icar_cg_solve_cuda(*args, return_resid=True)
+    shifted = []
+    for a in args[:2]:
+        buf = torch.empty(a.numel() + 1, device=dev)
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        shifted.append(view)
+    got = icar_cg_solve_cuda(*shifted, *args[2:], return_resid=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('n', [200, 333])
+def test_cg_kernel_is_bit_reproducible(dev, n):
+    args = _cg_args(dev, 64, 6, n)
+    a = icar_cg_solve_cuda(*args, return_resid=True)
+    b = icar_cg_solve_cuda(*args, return_resid=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize('n', [200, 333])
+@pytest.mark.parametrize('rows', [2, 6, 8])
+def test_cg_kernel_chain_independence(dev, rows, n):
+    """Chain c's three outputs are bit for bit the same alone, among
+    other chains whose inputs differ, and at another chain count: rows of
+    several chains share a tile, but every sum is taken in an order that
+    depends on n alone."""
+    args = _cg_args(dev, 64, rows, n)
+    full = icar_cg_solve_cuda(*args, return_resid=True)
+    keep = slice(5, 8)
+    few = icar_cg_solve_cuda(*(a[keep] for a in args[:4]), *args[4:],
+                             return_resid=True)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    mixed_args = []
+    for a in args[:4]:
+        fresh = 0.05 + torch.rand(a.shape, device=dev, generator=gen)
+        fresh[keep] = a[keep]
+        mixed_args.append(fresh)
+    mixed = icar_cg_solve_cuda(*mixed_args, *args[4:], return_resid=True)
+    for f, w, x in zip(full, few, mixed):
+        assert torch.equal(f[keep], w)
+        assert torch.equal(f[keep], x[keep])
+    assert not torch.equal(full[0][:5], mixed[0][:5])
+
+
+def test_cg_kernel_wrapper_raises_on_what_it_does_not_take(dev):
+    u, s = _cg_system(dev, 200)
+    ok = _cg_args(dev, 2, 6, 200)
+    # more elements than the kernel's 32-bit indices reach; expanded
+    # views, so nothing of that size is allocated
+    huge = torch.zeros(1, device=dev).expand(2 ** 15, 8, 2 ** 13)
+    with pytest.raises(ValueError, match='elements'):
+        icar_cg_solve_cuda(huge, huge, huge[:, 0], torch.ones(2 ** 15),
+                           u, s, 8)
+    with pytest.raises(TypeError):
+        icar_cg_solve_cuda(ok[0].double(), *ok[1:])
+    with pytest.raises(ValueError):
+        icar_cg_solve_cuda(ok[0], ok[1][:, :5], *ok[2:])
+    with pytest.raises(ValueError):
+        icar_cg_solve_cuda(*ok[:4], u[:100, :100], s[:100], 8)
+
+
 @pytest.mark.parametrize('tau', [1.0, 1e4])
 def test_cg_kernel_matches_plain(dev, tau):
     q = lattice_precision(10, 20).toarray().astype(np.float64)

@@ -62,6 +62,45 @@ def test_mass_texpon_mean_var_match_jax():
     np.testing.assert_allclose(var[~far], exact[~far], rtol=1e-4)
 
 
+@pytest.mark.parametrize('reference', ['jax', 'port'])
+def test_kernel_input_arithmetic_matches_reference(reference):
+    """The CUDA kernel computes c, k_exp and the mixture mass itself, the
+    mass with log Phi written in erfcx (csrc/pg_devroye.cu:mass_texpon).
+    Its torch transcription agrees with the JAX _pg_inputs and with the
+    port's pg_inputs over c in [0, 40]: c and k_exp are the same
+    operations (1e-6 relative), and the mass, which goes through other
+    library functions (erfcx and log1p against log_ndtr and logaddexp),
+    to 2e-6 absolute on a quantity in (0, 1)."""
+    c = np.concatenate([
+        np.linspace(0.0, 40.0, 4001), np.geomspace(1e-6, 40.0, 500)
+    ]).astype(np.float32)
+    gen = np.random.default_rng(5)
+    z = (2.0 * c * gen.choice([-1.0, 1.0], c.size)).astype(np.float32)
+    if reference == 'jax':
+        want = [np.asarray(a) for a in jpallas._pg_inputs(jnp.asarray(z))]
+    else:
+        want = [a.numpy() for a in tpg.pg_inputs(_t(z))]
+    tc = 0.5 * torch.abs(_t(z))
+    ratio = tpg.mass_texpon_erfcx(tc).numpy()
+    k_exp = (math.pi * math.pi / 8.0 + 0.5 * tc * tc).numpy()
+    np.testing.assert_allclose(tc.numpy(), want[0], rtol=1e-6)
+    np.testing.assert_allclose(k_exp, want[2], rtol=1e-6)
+    assert np.isfinite(ratio).all()
+    assert np.abs(ratio - want[1]).max() <= 2e-6
+
+
+def test_log_ndtr_erfcx_keeps_its_digits_in_the_tail():
+    """At the mass's strongly negative arguments (down to -33 at c = 40)
+    Phi(x) underflows in float32 but the erfcx form of log Phi(x) stays
+    within 1e-6 relative of scipy's float64 log_ndtr."""
+    from scipy.special import log_ndtr
+
+    x = np.linspace(-33.0, 5.0, 2000).astype(np.float32)
+    got = tpg._log_ndtr_erfcx(_t(x)).numpy()
+    want = log_ndtr(x.astype(np.float64))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
 def _partial_sums(x, v):
     """float64 partial sums S_1..S_4 of the alternating series and the
     test statistic y = v * a_0(x)."""
