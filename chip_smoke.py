@@ -6,7 +6,9 @@ It builds the CUDA kernels from ``occuspytial_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each against its plain PyTorch version at the shapes of
 the main path, runs ``LogitICARGibbs`` on the benchmark's headline
 problem (n = 1000 sites, 64 chains) through both eta-solve
-implementations, and prints one JSON line of per-kernel numbers and, last,
+implementations, then ``LogitRSRGibbs`` (n = 1000, q = 100, 64 chains)
+and the two probit samplers on the 10 x 10 lattice (1024 and 512
+chains), and prints one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero without that line; it also fails without CUDA.
 ``--stop-after N`` ends after phase N (a quick build-and-check run).
@@ -29,6 +31,12 @@ HEAD = dict(n=1000, ns=500, p=3, q=3, min_v=2, max_v=10, random_state=7)
 CHAINS = 64
 MAIN_SIZE, MAIN_BURNIN = 1024, 256
 CG_SIZE, CG_BURNIN = 512, 128
+# bench.py configs 3, 2 and 2b at their widths, depth cut from 3008 / 512
+# and 2048 / 512 draws
+RSR_Q = 100
+LATTICE = dict(rows=10, cols=10, ns=50, seed=3)
+PROBIT_ICAR_CHAINS, PROBIT_RSR_CHAINS = 1024, 512
+NEW_SIZE, NEW_BURNIN = 512, 128
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
 #: op/s, dense TF32 tensor-core op/s
@@ -46,6 +54,35 @@ PG_OPS_PER_ROUND = 2 * 70 + 60
 #: operations the mixture inputs cost a lane once: c, k_exp and the mass
 #: (about 12 transcendental calls, erfcx and erfc among them)
 PG_OPS_INPUTS = 120
+
+def make_lattice_dataset(rows, cols, ns, seed, p=3, qa=3, min_v=2,
+                         max_v=10, neighbors=8):
+    """Simulated occupancy dataset on a (rows x cols) lattice: the JAX
+    bench's ``make_lattice_dataset`` (bench.py:93-117, configs 1, 2 and
+    2b), draw for draw, on the port's own helpers."""
+    from occuspytial_tpu_torch.ops.icar import lattice_precision
+    from occuspytial_tpu_torch.utils import get_generator
+
+    n = rows * cols
+    gen = get_generator(seed)
+    Q = lattice_precision(rows, cols, neighbors).astype(float)
+    X = gen.uniform(-2, 2, (n, p))
+    X[:, 0] = 1
+    beta = gen.standard_normal(p)
+    alpha = gen.standard_normal(qa)
+    psi = 1 / (1 + np.exp(-(X @ beta)))
+    z = gen.binomial(1, psi)
+    sites = gen.choice(n, ns, replace=False)
+    W, y = {}, {}
+    for site in sites:
+        v = gen.integers(min_v, max_v, endpoint=True)
+        w = gen.uniform(-2, 2, (v, qa))
+        w[:, 0] = 1
+        d = 1 / (1 + np.exp(-(w @ alpha)))
+        W[int(site)] = w
+        y[int(site)] = gen.binomial(1, z[site] * d)
+    return Q, W, X, y, alpha, beta
+
 
 def phase(name):
     print(f'--- {name}', flush=True)
@@ -91,6 +128,47 @@ def min_pooled_ess(post):
     return float(np.nanmin(vals))
 
 
+def check_posterior(post, chains, kept, dims):
+    """Every draw finite, every array (chains, kept[, dim])."""
+    for name, dim in dims.items():
+        arr = np.asarray(post[name])
+        want = (chains, kept) + ((dim,) if dim else ())
+        check(arr.shape == want, f'{name} shape {arr.shape} != {want}')
+        check(np.isfinite(arr).all(), f'non-finite {name} draws')
+
+
+def check_state(carry):
+    """Every floating state entry of the final carry finite."""
+    for name, val in carry.states.items():
+        if val.is_floating_point():
+            check(bool(val.isfinite().all()), f'non-finite state {name}')
+
+
+def run_timed(sampler, size, burnin, chains, counters):
+    """``sampler.sample`` with every kernel count set to 0 just before;
+    returns the posterior, the wall seconds and the counts just after."""
+    import torch
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    post = sampler.sample(size, burnin=burnin, chains=chains,
+                          progressbar=False)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - ts
+    return post, sec, [c.launches for c in counters]
+
+
+def report(label, post, size, sec):
+    ess = min_pooled_ess(post)
+    print(f'    {label}: {size / sec:.2f} it/s, min pooled bulk-ESS '
+          f'{ess:.1f}, ESS/s {ess / sec:.2f}, wall {sec:.2f} s')
+    for name in ('alpha', 'beta', 'tau'):
+        print(f'    {name} mean {np.asarray(post[name]).mean(axis=(0, 1))}')
+    return ess
+
+
 def mean_parity(post_a, post_b):
     """Posterior means of alpha and beta agree by a two-sample z-test
     (Z = 6, floor 0.05, the pattern of tests/test_parity.py); returns the
@@ -110,7 +188,7 @@ def mean_parity(post_a, post_b):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--stop-after', type=int, default=7)
+    ap.add_argument('--stop-after', type=int, default=10)
     args = ap.parse_args()
 
     import torch
@@ -149,7 +227,13 @@ def main():
     if args.stop_after < 3:
         return
 
-    from occuspytial_tpu_torch import LogitICARGibbs, rng
+    from occuspytial_tpu_torch import (
+        LogitICARGibbs,
+        LogitRSRGibbs,
+        ProbitICARGibbs,
+        ProbitRSRGibbs,
+        rng,
+    )
     from occuspytial_tpu_torch.ops import polyagamma as pgm
     from occuspytial_tpu_torch.ops.cg import icar_cg_solve_spectral
     from occuspytial_tpu_torch.ops.cuda_cg import icar_cg_solve_cuda
@@ -446,7 +530,80 @@ def main():
           f'z-ratio vs phase 5 {worst:.3f}')
     done(t0)
 
-    t0 = phase('7 report')
+    if args.stop_after < 7:
+        return
+    counters = (pg_devroye_cuda, icar_cg_solve_cuda)
+    kept = NEW_SIZE - NEW_BURNIN
+
+    t0 = phase('7 LogitRSRGibbs, config 3 width (n = 1000, q = 100, '
+               '64 chains)')
+    rsr = LogitRSRGibbs(Q, W, X, y, random_state=HEAD['random_state'],
+                        q=RSR_Q, device=dev)
+    check(rsr.q_dim == RSR_Q and rsr.spatial_sweeps == 2
+          and rsr.pg_method == 'pallas_packed' and not rsr._solves_lambda,
+          'unexpected RSR defaults')
+    post_rsr, rsr_sec, (rsr_pg_launches, rsr_cg_launches) = run_timed(
+        rsr, NEW_SIZE, NEW_BURNIN, CHAINS, counters)
+    # one PG launch a step and no other: no cold-start solver check (the
+    # RSR eta draw never solves against tau*Q + diag(omega))
+    check(rsr_pg_launches == NEW_SIZE,
+          f'RSR PG launches {rsr_pg_launches} != {NEW_SIZE}')
+    check(rsr_cg_launches == 0 and not rsr._solver_checked,
+          'RSR ran the ICAR solver')
+    check_posterior(post_rsr, CHAINS, kept, {'alpha': s.n_alpha,
+                                             'beta': s.n_beta, 'tau': 0})
+    check_state(rsr.final_carry)
+    check(tuple(rsr.final_carry.states['eta'].shape) == (CHAINS, RSR_Q),
+          'RSR eta shape')
+    print(f'    PG launches {rsr_pg_launches} (one a step)')
+    report(f'{kind} ({card})', post_rsr, NEW_SIZE, rsr_sec)
+    done(t0)
+
+    Q2, W2, X2, y2, *_ = make_lattice_dataset(
+        LATTICE['rows'], LATTICE['cols'], ns=LATTICE['ns'],
+        seed=LATTICE['seed'])
+
+    t0 = phase('8 ProbitICARGibbs, config 2 width (10 x 10 lattice, '
+               '1024 chains)')
+    picar = ProbitICARGibbs(Q2, W2, X2, y2, random_state=LATTICE['seed'],
+                            device=dev)
+    check(picar.solver == 'spectral' and picar.spatial_sweeps == 6
+          and picar.collapsed, 'unexpected probit ICAR defaults')
+    post_picar, picar_sec, picar_launches = run_timed(
+        picar, NEW_SIZE, NEW_BURNIN, PROBIT_ICAR_CHAINS, counters)
+    check(picar_launches == [0, 0], 'the probit path launched a kernel')
+    check_posterior(post_picar, PROBIT_ICAR_CHAINS, kept,
+                    {'alpha': picar.n_alpha, 'beta': picar.n_beta, 'tau': 0})
+    check_state(picar.final_carry)
+    eta = picar.final_carry.states['eta']
+    drift = float((eta.sum(dim=-1).abs() / (1.0 + eta.abs().amax(-1))).max())
+    check(drift < 1e-4, f'eta off the sum-to-zero hyperplane: {drift:.2e}')
+    print(f'    max |sum eta| / (1 + max |eta|) {drift:.2e}')
+    report(f'{kind} ({card})', post_picar, NEW_SIZE, picar_sec)
+    done(t0)
+
+    t0 = phase('9 ProbitRSRGibbs, config 2b width (10 x 10 lattice, '
+               '512 chains), both ladders')
+    prsr = {}
+    for collapsed in (True, False):
+        sampler = ProbitRSRGibbs(Q2, W2, X2, y2, random_state=LATTICE['seed'],
+                                 collapsed=collapsed, device=dev)
+        post_p, sec_p, launches_p = run_timed(
+            sampler, NEW_SIZE, NEW_BURNIN, PROBIT_RSR_CHAINS, counters)
+        check(launches_p == [0, 0], 'the probit path launched a kernel')
+        check_posterior(post_p, PROBIT_RSR_CHAINS, kept,
+                        {'alpha': sampler.n_alpha, 'beta': sampler.n_beta,
+                         'tau': 0})
+        check_state(sampler.final_carry)
+        print(f'    collapsed={collapsed} (q = {sampler.q_dim}):')
+        report(f'{kind} ({card})', post_p, NEW_SIZE, sec_p)
+        prsr[collapsed] = post_p
+    worst_probit = mean_parity(prsr[True], prsr[False])
+    print(f'    worst mean z-ratio, collapsed vs reference-ordered '
+          f'{worst_probit:.3f}')
+    done(t0)
+
+    t0 = phase('10 report')
     # no single PyTorch call computes either function (a fixed-round
     # rejection sampler; a fixed-iteration PCG), so library_ms is null
     common = {'route': 'cuda', 'library_ms': None}
@@ -455,7 +612,8 @@ def main():
         source='occuspytial_tpu_torch/csrc/pg_devroye.cu',
         replaces='occuspytial_tpu/ops/pallas_pg.py:205 (K1), '
                  'occuspytial_tpu/ops/pallas_pg.py:191 (K2)',
-        launches=pg_launches, max_abs_err=pg_err, mismatch_share=mismatch,
+        launches=pg_launches, launches_logit_rsr=rsr_pg_launches,
+        max_abs_err=pg_err, mismatch_share=mismatch,
         ms=pg_ms, plain_ms=pg_plain_ms, bound_ms=pg_bound,
         bound_by='operations' if pg_ops / PEAK_F32 > pg_bytes / PEAK_BYTES
         else 'bytes',

@@ -9,11 +9,19 @@ This package imports no JAX and nothing of ``occuspytial_tpu``.
 
 from .chain import Chain
 from .data import Data, OccupancyData, pack_detection_data
-from .models import LogitICARGibbs
+from .models import (
+    LogitICARGibbs,
+    LogitRSRGibbs,
+    ProbitICARGibbs,
+    ProbitRSRGibbs,
+)
 from .posterior import PosteriorParameter
 
 __all__ = (
     'LogitICARGibbs',
+    'LogitRSRGibbs',
+    'ProbitICARGibbs',
+    'ProbitRSRGibbs',
     'Data',
     'OccupancyData',
     'pack_detection_data',

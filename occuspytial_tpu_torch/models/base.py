@@ -28,6 +28,11 @@ from ..ops import icar
 from ..posterior import PosteriorParameter
 
 
+#: update indices of the init draws (step 0 of the init keys) beyond the
+#: common start's 1-4: a reduced-basis eta and the probit site effect
+INIT_ETA_BASIS, INIT_EPS = 5, 6
+
+
 class Carry(typing.NamedTuple):
     """Resumable sampling state: per-chain run keys (chains, 2) int64
     words, the state dict of batched tensors, and the next step index."""
@@ -188,12 +193,15 @@ class GibbsBase:
         """Subclasses may extend."""
         return self._init_common(keys, fixed)
 
+    #: state entries a user ``start`` dict may set
+    _start_names = ('alpha', 'beta', 'tau', 'eta')
+
     def _apply_start(self, state, start):
         """Override state entries from a user ``start`` dict
         (reference gibbs/base.py:188-197)."""
         out = dict(state)
         chains = state['tau'].shape[0]
-        for name in ('alpha', 'beta', 'tau', 'eta'):
+        for name in self._start_names:
             if name in start:
                 val = torch.as_tensor(
                     np.asarray(start[name]), device=self.device
@@ -206,6 +214,23 @@ class GibbsBase:
 
     def _spatial_from_eta(self, eta):
         return eta
+
+    def _site_sum(self, per_visit):
+        """Per-site sums (chains, n) of per-visit values (chains,
+        total_visits), 0 at unsurveyed sites.
+
+        The sum runs over the padded (n_surveyed, v_max) visit grid in a
+        fixed order. The JAX package's scatter-add (``.at[visit_site].
+        add``) would become ``index_add_``, which on CUDA sums with atomics
+        in an order that changes from run to run, so one ``random_state``
+        would no longer give identical draws."""
+        grid = torch.where(
+            self._pad_mask, per_visit[:, self._pad_idx],
+            torch.zeros((), dtype=per_visit.dtype, device=per_visit.device),
+        )
+        out = per_visit.new_zeros((per_visit.shape[0], self.n))
+        out[:, self._site_idx] = grid.sum(dim=-1)
+        return out
 
     # ------------------------------------------------------------------ #
     # transition kernel

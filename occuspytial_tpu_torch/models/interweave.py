@@ -12,7 +12,9 @@ and the move updates ``lt = log tau`` per chain:
 - ``'slice'``: one Neal (2003) slice-sampling update with capped
   stepping-out and a shrinkage loop truncated at ``steps``.
 
-Each move takes all of its noise up front as arguments (the JAX version
+:func:`ancillary_tau_move` runs the move and rescales the field, for the
+logit and the probit samplers alike. Each move takes all of its noise up
+front as arguments (the JAX version
 draws it up front too), so a test can feed both versions the same draws;
 :func:`noise_from_words` makes that noise from the sampler's stream.
 """
@@ -95,3 +97,23 @@ def log_tau_move(lt0, logf, method, sd, steps, noise):
     if method == 'slice':
         return slice_log_move(lt0, logf, sd, steps, noise)
     return mh_log_move(lt0, logf, sd, steps, noise)
+
+
+def ancillary_tau_move(s, spatial_a, a_lin, c_quad, a0, b0, method, sd,
+                       steps, noise):
+    """The ASIS tau interweave (Yu & Meng 2011) on state ``s``: a move of
+    log tau under ``log f = a0*log t - b0*t + a_lin/sqrt(t) - c_quad/t``
+    (the ancillary field ``spatial_a = sqrt(tau) * spatial`` held fixed),
+    then eta and spatial rescaled to the new tau. Per-chain tensors."""
+    def logf(log_t):
+        t = torch.exp(log_t)
+        return a0 * log_t - b0 * t + a_lin * torch.rsqrt(t) - c_quad / t
+
+    rt = torch.sqrt(s['tau'])
+    lt = log_tau_move(torch.log(s['tau']), logf, method, sd, steps, noise)
+    new_t = torch.exp(lt)
+    inv_rt = torch.rsqrt(new_t)
+    s['tau'] = new_t
+    s['eta'] = (rt[:, None] * s['eta']) * inv_rt[:, None]
+    s['spatial'] = spatial_a * inv_rt[:, None]
+    return s

@@ -1,14 +1,16 @@
-"""Logit-link Gibbs sampler with the ICAR spatial random effect.
+"""Logit-link Gibbs samplers with the ICAR or RSR spatial random effect.
 
-Port of ``LogitICARGibbs`` from the JAX package's ``models/logit.py``
-(reference gibbs/logit.py, Pólya-Gamma augmentation). One step, per
-chain (chains are the leading dimension of every state tensor):
+Port of ``LogitICARGibbs`` and ``LogitRSRGibbs`` from the JAX package's
+``models/logit.py`` (reference gibbs/logit.py, Pólya-Gamma augmentation).
+One step, per chain (chains are the leading dimension of every state
+tensor):
 
 1. one PG(1, z) draw for both linear predictors, the sites' and the
    visits' (the CUDA kernel on the card, :mod:`..ops.cuda_pg`);
 2. ``spatial_sweeps`` times: tau | eta (gamma), the collapsed beta / eta
    update (one multi-row solve against tau*Q + diag(omega), by the
-   eigenbasis CG or by Cholesky), and the ASIS log-tau move;
+   eigenbasis CG or by Cholesky; RSR: eta in the q-dimensional Moran
+   basis, then beta), and the ASIS log-tau move;
 3. alpha | z, omega_a and z | rest.
 
 Each update takes its noise as arguments (the step makes it from the
@@ -26,10 +28,15 @@ from ..ops import icar
 from ..ops.cg import icar_cg_solve_spectral
 from ..ops.cuda_cg import icar_cg_solve_cuda
 from ..ops.cuda_pg import pg_devroye_cuda
-from ..ops.mvnorm import lambda_cholesky_solve, precision_mvnorm, sum_to_zero
+from ..ops.mvnorm import (
+    lambda_cholesky_solve,
+    precision_mvnorm,
+    rsr_mvnorm,
+    sum_to_zero,
+)
 from ..ops.polyagamma import pg_devroye, pg_gamma
-from .base import GibbsBase
-from .interweave import log_tau_move, noise_from_words, noise_words
+from .base import INIT_ETA_BASIS, GibbsBase
+from .interweave import ancillary_tau_move, noise_from_words, noise_words
 
 #: below this site count the dense Cholesky eta draw is the default
 _CG_AUTO_THRESHOLD = 512
@@ -116,7 +123,7 @@ class LogitICARGibbs(GibbsBase):
                 solver = 'graph'
             else:
                 solver = 'cg' if n_sites >= _CG_AUTO_THRESHOLD else 'chol'
-        if solver in _NOT_PORTED:
+        if solver in _NOT_PORTED and self._solves_lambda:
             raise NotImplementedError(_NOT_PORTED[solver])
         self.solver = solver
         if cg_iters is None:
@@ -150,7 +157,9 @@ class LogitICARGibbs(GibbsBase):
             counts[base + _TAU] = rng.GAMMA_WORDS
             counts[base + _BETA] = 2 * self.n_beta
             counts[base + _EPS1] = 2 * self.n
-            counts[base + _NOISE] = 2 * (self.n - 1)
+            # the field noise: B eps with B B' = Q (n - 1 columns), or
+            # E eps with E E' = Q_rsr (q columns)
+            counts[base + _NOISE] = 2 * self.fixed['sqrt_factor'].shape[1]
             counts[base + _ASIS] = noise_words(
                 self.asis_method, self.asis_steps
             )
@@ -167,6 +176,13 @@ class LogitICARGibbs(GibbsBase):
         if self.solver == 'cg':
             self.fixed['q_eigvals'] = s_eig
             self.fixed['q_eigvecs'] = u_eig
+
+    @property
+    def _solves_lambda(self):
+        """Whether eta is drawn on the full site field through solves
+        against tau*Q + diag(omega); a subclass that overrides the eta
+        conditional (RSR: a dense q-dimensional draw) never is."""
+        return type(self)._update_eta is LogitICARGibbs._update_eta
 
     def _pg(self, subkeys, z):
         if self.pg_method == 'gamma':
@@ -267,6 +283,7 @@ class LogitICARGibbs(GibbsBase):
             self.solver != 'cg'
             or self.solver_check_tol is None
             or self._solver_checked
+            or not self._solves_lambda
         ):
             return
         self._solver_checked = True
@@ -282,10 +299,14 @@ class LogitICARGibbs(GibbsBase):
 
     # -------------------------- update segments ----------------------- #
 
+    def _eta_quad(self, eta, fixed):
+        """eta' Q eta per chain."""
+        return torch.sum(eta * (eta @ fixed['Q']), dim=-1)
+
     def _update_tau(self, eta, fixed, g):
         """tau ~ Gamma(shape, 0.5 eta'Q eta + rate) given ``g`` ~
         Gamma(shape, 1) per chain (reference gibbs/logit.py:206-209)."""
-        quad = torch.sum(eta * (eta @ fixed['Q']), dim=-1)
+        quad = self._eta_quad(eta, fixed)
         # clamp: float32 cancellation can push the PSD form below 0
         rate = 0.5 * torch.clamp(quad, min=0.0) + fixed['tau_rate']
         return g / rate
@@ -350,29 +371,16 @@ class LogitICARGibbs(GibbsBase):
         log tau under the ancillary field sqrt(tau) * eta, then eta and
         spatial rescaled (see the JAX ``_asis_tau``). ``noise`` is the
         move's noise (:func:`.interweave.noise_from_words`)."""
-        tau = s['tau']
-        rt = torch.sqrt(tau)
-        spatial_a = rt[:, None] * s['spatial']
+        spatial_a = torch.sqrt(s['tau'])[:, None] * s['spatial']
         xb = s['beta'] @ fixed['X'].T
         a_lin = torch.sum((s['k'] - omega_b * xb) * spatial_a, dim=-1)
         c_quad = 0.5 * torch.sum(omega_b * spatial_a * spatial_a, dim=-1)
-        a0 = fixed['tau_shape'] - 0.5 * self._eta_scale_dim
-        b0 = fixed['tau_rate']
-
-        def logf(log_t):
-            t = torch.exp(log_t)
-            return a0 * log_t - b0 * t + a_lin * torch.rsqrt(t) - c_quad / t
-
-        lt = log_tau_move(
-            torch.log(tau), logf, self.asis_method, self.asis_sd,
+        return ancillary_tau_move(
+            s, spatial_a, a_lin, c_quad,
+            fixed['tau_shape'] - 0.5 * self._eta_scale_dim,
+            fixed['tau_rate'], self.asis_method, self.asis_sd,
             self.asis_steps, noise,
         )
-        new_t = torch.exp(lt)
-        inv_rt = torch.rsqrt(new_t)
-        s['tau'] = new_t
-        s['eta'] = (rt[:, None] * s['eta']) * inv_rt[:, None]
-        s['spatial'] = spatial_a * inv_rt[:, None]
-        return s
 
     def _update_eta(self, state, omega_b, tau, fixed, eps1, eps_noise):
         """Constrained ICAR draw (reference gibbs/logit.py:211-217),
@@ -416,22 +424,10 @@ class LogitICARGibbs(GibbsBase):
     def _update_z(self, state, alpha, beta, spatial, fixed, u):
         """Occupancy update (reference gibbs/logit.py:234-252) given
         uniforms ``u`` (chains, n): z = 1 where detected, else
-        Bernoulli(sigmoid(logit psi + sum_v log(1 - d_v))).
-
-        The per-site sum over visits runs over the padded (n_surveyed,
-        v_max) grid in a fixed order. The JAX package's scatter-add
-        (``.at[visit_site].add``) would become ``index_add_``, which on
-        CUDA sums with atomics in an order that changes from run to run,
-        so one ``random_state`` would no longer give identical draws.
-        """
+        Bernoulli(sigmoid(logit psi + sum_v log(1 - d_v))), the sum over
+        visits in a fixed order (:meth:`~.base.GibbsBase._site_sum`)."""
         logit_psi = beta @ fixed['X'].T + spatial
-        neg_sp = -F.softplus(alpha @ fixed['W_flat'].T)  # (chains, tv)
-        grid = torch.where(
-            self._pad_mask, neg_sp[:, self._pad_idx],
-            torch.zeros((), dtype=neg_sp.dtype, device=neg_sp.device),
-        )
-        log_prod = torch.zeros_like(logit_psi)
-        log_prod[:, self._site_idx] = grid.sum(dim=-1)
+        log_prod = self._site_sum(-F.softplus(alpha @ fixed['W_flat'].T))
         p = torch.sigmoid(logit_psi + log_prod)
         draw = (u < p).to(self.dtype)
         z = torch.where(
@@ -462,7 +458,7 @@ class LogitICARGibbs(GibbsBase):
             )
             eps1 = rng.normal(w[base + _EPS1], dt)
             eps_noise = rng.normal(w[base + _NOISE], dt)
-            if self.blocked:
+            if self.blocked and self._solves_lambda:
                 beta, eta = self._update_beta_eta_blocked(
                     s, omega_b, tau, fixed, rng.normal(w[base + _BETA], dt),
                     eps1, eps_noise,
@@ -497,3 +493,78 @@ class LogitICARGibbs(GibbsBase):
             rng.uniform(w[self._z_update], dt),
         )
         return s
+
+
+class LogitRSRGibbs(LogitICARGibbs):
+    """Logit sampler with Reduced Spatial Regression (Moran basis).
+
+    Port of the JAX package's ``LogitRSRGibbs`` (reference
+    gibbs/logit.py:340-485); same constructor plus ``device``. The Moran
+    basis K (n, q) is built once on the host (:func:`..ops.icar.
+    moran_basis`, threshold ``r`` or ``q`` columns); eta lives in that
+    basis and ``spatial = K eta``. A step draws both PG fields in one
+    launch of the CUDA kernel (on the card), then ``spatial_sweeps``
+    (default 2) times tau, eta (:func:`..ops.mvnorm.rsr_mvnorm`), beta and
+    the ASIS move. ``solver`` and ``blocked`` are accepted and unused, as
+    in the JAX package: no solve against tau*Q + diag(omega) is made.
+    """
+
+    # K and Q_rsr = K'QK are the only spatial operators downstream
+    _needs_dense_q = False
+
+    def __init__(
+        self, Q, W, X, y, hparams=None, random_state=None, r=0.5, q=None,
+        dtype=torch.float32, pg_method=None, **kwargs,
+    ):
+        self._rsr_r = r
+        self._rsr_q = q
+        # the JAX package's measured default: a third sweep does not pay
+        # in the reduced basis (tau does not bind there)
+        kwargs.setdefault('spatial_sweeps', 2)
+        super().__init__(
+            Q, W, X, y, hparams, random_state, dtype=dtype,
+            pg_method=pg_method, **kwargs,
+        )
+
+    def _configure(self, Q, x_np, hparams):
+        GibbsBase._configure(self, Q, x_np, hparams)
+        k_basis, q_rsr = icar.moran_basis(
+            x_np, Q, r=self._rsr_r, num_eigs=self._rsr_q
+        )
+        self.q_dim = q_rsr.shape[0]
+        self.fixed['K'] = k_basis
+        self.fixed['Q_rsr'] = q_rsr
+        self.fixed['sqrt_factor'] = icar.psd_sqrt_factor(q_rsr)
+        if not self.hparams_given:
+            # reference gibbs/logit.py:454-457
+            self.fixed['tau_shape'] = 0.5 + 0.5 * self.q_dim
+
+    def _init_state(self, keys, fixed):
+        """The common start, then eta ~ N(0, 5^2) in the basis (reference
+        gibbs/logit.py:462-466)."""
+        state = self._init_common(keys, fixed)
+        w = rng.words(keys, 0, INIT_ETA_BASIS, 2 * self.q_dim)
+        state['eta'] = 5.0 * rng.normal(w, self.dtype)
+        state['spatial'] = self._spatial_from_eta(state['eta'])
+        return state
+
+    def _spatial_from_eta(self, eta):
+        return eta @ self.fixed['K'].T
+
+    @property
+    def _eta_scale_dim(self):
+        return self.q_dim
+
+    def _eta_quad(self, eta, fixed):
+        return torch.sum(eta * (eta @ fixed['Q_rsr']), dim=-1)
+
+    def _update_eta(self, state, omega_b, tau, fixed, eps1, eps2):
+        """Reduced-basis eta draw (reference gibbs/logit.py:478-485);
+        ``eps1`` (chains, n) and ``eps2`` (chains, q) standard normals."""
+        xb = state['beta'] @ fixed['X'].T
+        b = (state['k'] - omega_b * xb) @ fixed['K']
+        eta = rsr_mvnorm(
+            b, omega_b, tau, fixed['Q_rsr'], fixed['K'],
+            fixed['sqrt_factor'], eps1, eps2,
+        )
+        return eta, eta @ fixed['K'].T

@@ -4,7 +4,10 @@ Port of the JAX package's ``ops/mvnorm.py``: the kriging projection
 ``sum_to_zero``, the small-dimension ``precision_mvnorm`` (Cholesky
 unrolled into elementwise ops for d <= 6, as there) and the exact
 Cholesky draw of the constrained ICAR field ``constrained_icar_mvnorm``
-(the ``solver='chol'`` regime). Leading dimensions are the chains.
+(the ``solver='chol'`` regime), its closed-form unit-noise analog
+``constrained_icar_mvnorm_unit`` (the probit ICAR field) and the reduced
+basis draw ``rsr_mvnorm`` (the RSR field). Leading dimensions are the
+chains.
 
 Every function takes its standard normals as optional arguments, so a
 test can feed both this port and the JAX package the same noise; when
@@ -20,6 +23,16 @@ def _normals(eps, shape, like, generator):
     return torch.randn(
         shape, dtype=like.dtype, device=like.device, generator=generator
     )
+
+
+def cholesky_solve(rhs, chol):
+    """Solve ``L L' X = rhs`` for the lower factor ``chol`` (..., d, d)
+    and ``rhs`` (..., d, k) by two triangular solves. On CUDA,
+    ``torch.cholesky_solve`` runs through MAGMA, whose calls synchronise
+    the stream with the host; ``solve_triangular`` (cuBLAS) does not."""
+    y = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    return torch.linalg.solve_triangular(chol.transpose(-1, -2), y,
+                                         upper=True)
 
 
 def sum_to_zero(x, z):
@@ -67,21 +80,24 @@ def _bwd_unrolled(low, y, d):
     return x
 
 
-def precision_mvnorm(b, prec, eps=None, generator=None):
+def precision_mvnorm(b, prec, eps=None, generator=None, chol=None):
     """Draw from N(Lambda^{-1} b, Lambda^{-1}) for ``b`` (..., d) and
     ``prec`` (..., d, d): mean by two triangular solves, fluctuation
-    ``L'^{-1} eps`` (reference distributions.pyx:42-110)."""
+    ``L'^{-1} eps`` (reference distributions.pyx:42-110). ``chol``, the
+    lower Cholesky factor of ``prec`` when the caller already has it,
+    skips the factorization."""
     eps = _normals(eps, b.shape, b, generator)
     d = b.shape[-1]
-    if d <= _UNROLL_DIM:
+    if chol is None and d <= _UNROLL_DIM:
         low = _chol_unrolled(prec, d)
         cols = [b[..., i] for i in range(d)]
         noise = [eps[..., i] for i in range(d)]
         mean = _bwd_unrolled(low, _fwd_unrolled(low, cols, d), d)
         fluct = _bwd_unrolled(low, noise, d)
         return torch.stack([m + f for m, f in zip(mean, fluct)], dim=-1)
-    chol = torch.linalg.cholesky_ex(prec).L
-    mean = torch.cholesky_solve(b[..., None], chol)[..., 0]
+    if chol is None:
+        chol = torch.linalg.cholesky_ex(prec).L
+    mean = cholesky_solve(b[..., None], chol)[..., 0]
     fluct = torch.linalg.solve_triangular(
         chol.transpose(-1, -2), eps[..., None], upper=True
     )[..., 0]
@@ -95,7 +111,7 @@ def lambda_cholesky_solve(rhs, omega, tau, q_dense):
     lam = t[..., None, None] * q_dense + torch.diag_embed(omega)
     # cholesky_ex: no host-side error check (which would synchronise)
     chol = torch.linalg.cholesky_ex(lam).L
-    return torch.cholesky_solve(rhs.transpose(-1, -2), chol).transpose(-1, -2)
+    return cholesky_solve(rhs.transpose(-1, -2), chol).transpose(-1, -2)
 
 
 def constrained_icar_mvnorm(b, omega, tau, q_dense, sqrt_factor, eps1=None,
@@ -119,3 +135,49 @@ def constrained_icar_mvnorm(b, omega, tau, q_dense, sqrt_factor, eps1=None,
     rhs = torch.stack([y, torch.ones_like(y)], dim=-2)
     sol = lambda_cholesky_solve(rhs, omega, tau, q_dense)
     return sum_to_zero(sol[..., 0, :], sol[..., 1, :])
+
+
+def constrained_icar_mvnorm_unit(b, tau, eigvecs, eigvals, eps=None,
+                                 generator=None):
+    """The constrained draw for unit noise, ``Lambda = tau*Q + I`` (the
+    probit ICAR eta conditional): Lambda is diagonal in Q's eigenbasis
+    U, so with ``d = tau*s + 1``
+
+        y' = U'b + sqrt(d) eps,  x = U (y' / d),  z = U (U'1 / d),
+
+    then the kriging projection. ``b`` and ``eps`` (chains, n), ``tau``
+    (chains,)."""
+    eps = _normals(eps, b.shape, b, generator)
+    t = torch.as_tensor(tau, dtype=b.dtype, device=b.device)
+    d = t[..., None] * eigvals + 1.0
+    y_spec = b @ eigvecs + torch.sqrt(d) * eps
+    x = (y_spec / d) @ eigvecs.T
+    ones_spec = torch.sum(eigvecs, dim=0)  # U'1
+    z = (ones_spec / d) @ eigvecs.T
+    return sum_to_zero(x, z)
+
+
+def rsr_mvnorm(b, omega, tau, q_rsr, k_basis, sqrt_factor, eps1=None,
+               eps2=None, generator=None):
+    """Draw the RSR eta (chains, q) from N(Lambda^{-1} b, Lambda^{-1}),
+    ``Lambda = tau*Q_rsr + K' diag(omega) K`` with K the (n, q) Moran
+    basis and ``sqrt_factor`` E (q, q), E E' = Q_rsr (reference
+    gibbs/logit.py:269-337):
+
+        y = b + K'(sqrt(omega) eps1) + sqrt(tau) E eps2 ~ N(b, Lambda),
+
+    then one batched Cholesky solve. ``eps1`` (chains, n), ``eps2``
+    (chains, q). The K' diag(omega) K contraction is a float32 product
+    (the port keeps TF32 off on the card)."""
+    eps1 = _normals(eps1, omega.shape, b, generator)
+    eps2 = _normals(eps2, b.shape, b, generator)
+    t = torch.as_tensor(tau, dtype=b.dtype, device=b.device)
+    y = (
+        b + (torch.sqrt(omega) * eps1) @ k_basis
+        + torch.sqrt(t)[..., None] * (eps2 @ sqrt_factor.T)
+    )
+    lam = t[..., None, None] * q_rsr + (
+        k_basis.T * omega[..., None, :]
+    ) @ k_basis
+    chol = torch.linalg.cholesky_ex(lam).L
+    return cholesky_solve(y[..., None], chol)[..., 0]

@@ -148,7 +148,12 @@ def gamma(shape, w, dtype=torch.float32):
     first accepted one is the draw. ``shape`` < 1 draws Gamma(shape + 1)
     and scales by U^(1/shape) (the init tau draw has shape 0.5).
     """
-    shape = torch.as_tensor(shape, dtype=dtype, device=w.device)
+    if isinstance(shape, torch.Tensor):
+        shape = shape.to(dtype)
+    else:
+        # filled on the device: a host scalar copied there would
+        # synchronise the stream
+        shape = torch.full((), float(shape), dtype=dtype, device=w.device)
     cand = w.reshape(*w.shape[:-1], GAMMA_CANDIDATES, 4)
     x = normal(cand[..., :2], dtype)[..., 0]
     u = uniform(cand[..., 2], dtype)

@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
 """Where the port's Gibbs step spends its time on the CUDA card.
 
-Runs ``LogitICARGibbs`` on the benchmark's headline problem (n = 1000, 64
-chains, defaults) on the card, warms up, then traces ``--steps`` steps
-with ``torch.profiler`` and prints, per step: wall time, device busy time
-(union of kernel intervals), the device's idle share, kernel launches,
-host-device synchronisations, and the kernels that take most device time.
-``--trace PATH`` also writes the Chrome trace.
+Runs one sampler at its defaults on the card, warms up, then traces
+``--steps`` steps with ``torch.profiler`` and prints, per step: wall
+time, device busy time (union of kernel intervals), the device's idle
+share, kernel launches, host-device synchronisations, and the kernels
+that take most device time. ``--trace PATH`` also writes the Chrome
+trace. ``--model`` picks the problem, each at the width of a JAX bench
+configuration (bench.py):
 
-    python3 scripts/torch_profile_step.py [--steps 20] [--cg-impl xla]
+- ``logit_icar`` (default): ``LogitICARGibbs``, headline problem (config
+  4: n = 1000, 64 chains), with ``--cg-impl``;
+- ``logit_rsr``: ``LogitRSRGibbs``, the same data, q = 100, 64 chains
+  (config 3);
+- ``probit_icar``: ``ProbitICARGibbs``, 10 x 10 lattice, 1024 chains
+  (config 2);
+- ``probit_rsr``: ``ProbitRSRGibbs``, the same lattice, 512 chains
+  (config 2b).
+
+    python3 scripts/torch_profile_step.py [--model logit_icar] [--steps 20]
 """
 
 import argparse
@@ -38,7 +48,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--warmup', type=int, default=10)
-    ap.add_argument('--chains', type=int, default=64)
+    ap.add_argument('--model', default='logit_icar', choices=(
+        'logit_icar', 'logit_rsr', 'probit_icar', 'probit_rsr'))
+    ap.add_argument('--chains', type=int, default=None,
+                    help='default: the configuration\'s chain count')
     ap.add_argument('--cg-impl', default='xla', choices=('xla', 'pallas'))
     ap.add_argument('--trace', default=None, help='Chrome trace output')
     args = ap.parse_args()
@@ -46,7 +59,13 @@ def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from occuspytial_tpu_torch import LogitICARGibbs
+    from chip_smoke import make_lattice_dataset
+    from occuspytial_tpu_torch import (
+        LogitICARGibbs,
+        LogitRSRGibbs,
+        ProbitICARGibbs,
+        ProbitRSRGibbs,
+    )
     from occuspytial_tpu_torch.utils import make_data
 
     if not torch.cuda.is_available():
@@ -57,10 +76,23 @@ def main():
         capture_output=True, text=True, timeout=60, check=True,
     )
     print(smi.stdout.strip())
-    Q, W, X, y, *_ = make_data(n=1000, ns=500, p=3, q=3, min_v=2, max_v=10,
-                               random_state=7)
-    s = LogitICARGibbs(Q, W, X, y, random_state=7, cg_impl=args.cg_impl)
-    carry = s.init_carry(args.chains)
+    if args.model.startswith('logit'):
+        Q, W, X, y, *_ = make_data(n=1000, ns=500, p=3, q=3, min_v=2,
+                                   max_v=10, random_state=7)
+        if args.model == 'logit_icar':
+            s = LogitICARGibbs(Q, W, X, y, random_state=7,
+                               cg_impl=args.cg_impl)
+        else:
+            s = LogitRSRGibbs(Q, W, X, y, random_state=7, q=100)
+        chains = 64
+    else:
+        Q, W, X, y, *_ = make_lattice_dataset(10, 10, ns=50, seed=3)
+        if args.model == 'probit_icar':
+            s, chains = ProbitICARGibbs(Q, W, X, y, random_state=3), 1024
+        else:
+            s, chains = ProbitRSRGibbs(Q, W, X, y, random_state=3), 512
+    chains = args.chains or chains
+    carry = s.init_carry(chains)
     carry, _ = s._run(carry, args.warmup)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -86,7 +118,8 @@ def main():
         'cudaEventSynchronize'))
     memcpy = sum(1 for e in events if e.name.startswith('cudaMemcpy'))
     per = 1.0 / args.steps  # event times are in microseconds
-    print(f'cg_impl={args.cg_impl} chains={args.chains} steps={args.steps}')
+    print(f'model={args.model} cg_impl={args.cg_impl} chains={chains} '
+          f'steps={args.steps}')
     print(f'wall per step {wall * 1e3 * per:.3f} ms, device busy per step '
           f'{busy / 1e3 * per:.3f} ms, idle share '
           f'{1.0 - busy / 1e6 / wall:.3f}')

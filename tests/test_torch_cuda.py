@@ -13,7 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from occuspytial_tpu_torch import LogitICARGibbs, rng
+from chip_smoke import make_lattice_dataset
+from occuspytial_tpu_torch import (
+    LogitICARGibbs,
+    LogitRSRGibbs,
+    ProbitICARGibbs,
+    ProbitRSRGibbs,
+    rng,
+)
 from occuspytial_tpu_torch.ops import cg as tcg
 from occuspytial_tpu_torch.ops import polyagamma as tpg
 from occuspytial_tpu_torch.ops.cuda_cg import icar_cg_solve_cuda
@@ -283,3 +290,42 @@ def test_main_path_runs_and_is_reproducible(dev):
     with pytest.raises(TypeError):
         LogitICARGibbs(Q, W, X, y, dtype='float64', solver='cg').sample(
             2, progressbar=False)
+
+
+def _run_twice(make, size, chains):
+    draws = []
+    for _ in range(2):
+        draws.append(make().sample(size, chains=chains, progressbar=False))
+    for name in ('alpha', 'beta', 'tau'):
+        assert np.isfinite(draws[0][name]).all()
+        np.testing.assert_array_equal(draws[0][name], draws[1][name])
+    return draws[0]
+
+
+def test_logit_rsr_launches_the_pg_kernel_once_per_step(dev):
+    """RSR draws both PG fields in one launch a step and runs no
+    cold-start solver check (no '+1'); one seed gives one run."""
+    Q, W, X, y, *_ = make_data(n=150, ns=100, p=3, q=2, random_state=10)
+
+    def make():
+        s = LogitRSRGibbs(Q, W, X, y, random_state=4, q=15, solver='cg')
+        assert s.pg_method == 'pallas_packed' and not s._solves_lambda
+        return s
+
+    before = pg_devroye_cuda.launches
+    post = _run_twice(make, 20, 4)
+    assert pg_devroye_cuda.launches == before + 2 * 20
+    assert post['beta'].shape == (4, 20, 3)
+
+
+@pytest.mark.parametrize('cls', ['icar', 'rsr'])
+@pytest.mark.parametrize('collapsed', [True, False])
+def test_probit_samplers_run_and_are_reproducible(dev, cls, collapsed):
+    """The probit paths launch no hand-written kernel: their draws come
+    from torch ops alone, bit for bit the same twice."""
+    Q, W, X, y, *_ = make_lattice_dataset(10, 10, ns=50, seed=3)
+    sampler = {'icar': ProbitICARGibbs, 'rsr': ProbitRSRGibbs}[cls]
+    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    _run_twice(lambda: sampler(Q, W, X, y, random_state=4,
+                               collapsed=collapsed), 10, 8)
+    assert (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches) == before
