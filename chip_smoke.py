@@ -6,12 +6,14 @@ It builds the CUDA kernels from ``occuspytial_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each against its plain PyTorch version at the shapes of
 the main path, runs ``LogitICARGibbs`` on the benchmark's headline
 problem (n = 1000 sites, 64 chains) through both eta-solve
-implementations, then ``LogitRSRGibbs`` (n = 1000, q = 100, 64 chains)
-and the two probit samplers on the 10 x 10 lattice (1024 and 512
-chains), and prints one JSON line of per-kernel numbers and, last,
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-exits non-zero without that line; it also fails without CUDA.
-``--stop-after N`` ends after phase N (a quick build-and-check run).
+implementations, then ``LogitRSRGibbs`` (n = 1000, q = 100, 64 chains),
+the two probit samplers on the 10 x 10 lattice (1024 and 512 chains),
+and both ICAR samplers' matrix-free eta regimes on the 10,000-site
+lattice (``solver='stencil'`` and ``'graph'``, 32 and 64 chains), and
+prints one JSON line of per-kernel numbers and, last, ``{"ok": true,
+"device": {...}}``. Any failed check raises, so the script exits non-zero
+without that line; it also fails without CUDA. ``--stop-after N`` ends
+after phase N (a quick build-and-check run).
 """
 
 import argparse
@@ -37,6 +39,16 @@ RSR_Q = 100
 LATTICE = dict(rows=10, cols=10, ns=50, seed=3)
 PROBIT_ICAR_CHAINS, PROBIT_RSR_CHAINS = 1024, 512
 NEW_SIZE, NEW_BURNIN = 512, 128
+# bench.py configs 5 and 5g: the 100 x 100 queen lattice (10,000 sites) as
+# a lattice (32 chains) and as a general sparse graph (64 chains), depth
+# cut from 1024 / 128 draws; the probit family on the same data at 32
+# chains and a shorter depth; the graph's seeded rerun
+LARGE = dict(rows=100, cols=100, ns=5000, seed=11, min_v=2, max_v=5)
+LARGE_CHAINS = {'stencil': 32, 'graph': 64}
+LARGE_SIZE, LARGE_BURNIN = 512, 128
+PROBIT_LARGE_CHAINS = 32
+PROBIT_LARGE_SIZE, PROBIT_LARGE_BURNIN = 256, 64
+RERUN_SIZE = 16
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
 #: op/s, dense TF32 tensor-core op/s
@@ -186,9 +198,143 @@ def mean_parity(post_a, post_b):
     return worst
 
 
+def plane_drift(eta):
+    """Worst chain's |sum eta| / sum |eta|: float32 rounding on the
+    sum-to-zero hyperplane, ~1/sqrt(n) for a field off it."""
+    return float((eta.sum(dim=-1).abs() / eta.abs().sum(dim=-1)).max())
+
+
+def chain_count_diff(solve, rhs, x0, omega, tau, keep):
+    """Max |difference| between chains ``keep`` of one batched solve and
+    the same chains solved alone (0.0: the same bits at both counts)."""
+    full = solve(rhs, x0, omega, tau)
+    few = solve(rhs[keep], x0[keep], omega[keep], tau[keep])
+    return float((full[keep] - few).abs().max())
+
+
+def large_n_phases(dev, kind, card, counters):
+    """Phases 10-12: both ICAR samplers' matrix-free eta regimes on the
+    10,000-site lattice of bench.py configs 5 and 5g. Returns K1's
+    launches on the stencil and graph logit paths."""
+    import scipy.sparse as sps
+    import torch
+
+    from occuspytial_tpu_torch import LogitICARGibbs, ProbitICARGibbs
+
+    Q5, W5, X5, y5, *_ = make_lattice_dataset(
+        LARGE['rows'], LARGE['cols'], ns=LARGE['ns'], seed=LARGE['seed'],
+        min_v=LARGE['min_v'], max_v=LARGE['max_v'])
+    inputs = {'stencil': (Q5, dict(lattice=(LARGE['rows'], LARGE['cols'],
+                                            8))),
+              'graph': (sps.csr_matrix(Q5), dict(solver='graph'))}
+    dims = {'alpha': 3, 'beta': 3, 'tau': 0}
+    posts, launches, samplers = {}, {}, {}
+
+    def logit(regime, title):
+        t0 = phase(title)
+        q_in, kw = inputs[regime]
+        chains = LARGE_CHAINS[regime]
+        tb = time.perf_counter()
+        s = LogitICARGibbs(q_in, W5, X5, y5, random_state=LARGE['seed'],
+                           device=dev, **kw)
+        build = time.perf_counter() - tb
+        check(s.solver == regime and s.spatial_sweeps == 1
+              and s.pg_method == 'pallas_packed' and 'Q' not in s.fixed,
+              f'unexpected {regime} defaults')
+        if regime == 'stencil':
+            check(s.cg_iters == 15, 'stencil cg_iters')
+        else:
+            g = s.graph
+            check((g.block, g.n_pad, g.deflate, s.cg_iters)
+                  == (128, 10112, 512, 7),
+                  f'graph layout {g} cg_iters {s.cg_iters}')
+            print(f'    graph: {g}')
+        print(f'    build seconds (sampler construction) {build:.2f}')
+        post, sec, (pg_n, cg_n) = run_timed(s, LARGE_SIZE, LARGE_BURNIN,
+                                            chains, counters)
+        # one PG launch a step plus the cold-start check's; no K3
+        check(pg_n == LARGE_SIZE + 1,
+              f'{regime} PG launches {pg_n} != {LARGE_SIZE + 1}')
+        check(cg_n == 0, f'{regime} launched the K3 CG')
+        check_posterior(post, chains, LARGE_SIZE - LARGE_BURNIN, dims)
+        check_state(s.final_carry)
+        check(s.last_solver_resid < 0.2,
+              f'{regime} residual {s.last_solver_resid}')
+        drift = plane_drift(s.final_carry.states['eta'])
+        check(drift < 1e-4, f'{regime} eta off the hyperplane: {drift:.2e}')
+        print(f'    PG launches {pg_n}, last_solver_resid '
+              f'{s.last_solver_resid:.3e}, |sum eta| / sum |eta| '
+              f'{drift:.2e}')
+        report(f'{kind} ({card})', post, LARGE_SIZE, sec)
+        posts[regime], launches[regime], samplers[regime] = post, pg_n, s
+        return t0
+
+    done(logit('stencil', '10 LogitICARGibbs stencil, config 5 (100 x 100 '
+                          'lattice, 32 chains)'))
+    t0 = logit('graph', '11 LogitICARGibbs graph, config 5g (the same '
+                        'problem as a sparse Q, 64 chains)')
+    worst = mean_parity(posts['stencil'], posts['graph'])
+    print(f'    worst mean z-ratio, stencil vs graph {worst:.3f}')
+    gr = samplers['graph']
+    reruns = [gr.sample(RERUN_SIZE, chains=LARGE_CHAINS['graph'],
+                        progressbar=False) for _ in range(2)]
+    for name in dims:
+        check(np.array_equal(reruns[0][name], reruns[1][name]),
+              f'graph rerun {name} differs')
+    print(f'    {RERUN_SIZE}-step rerun, same seed: bit-identical')
+    # chain-count invariance of the two solves (cuBLAS picks its kernels
+    # by batch size): measured and printed, not required
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for regime, s in samplers.items():
+        ch, n = LARGE_CHAINS[regime], s.n
+        rhs = torch.randn((ch, s.n_beta + 3, n), device=dev, generator=gen)
+        omega = 0.05 + 0.25 * torch.rand((ch, n), device=dev, generator=gen)
+        tau = 1.0 + 30.0 * torch.rand(ch, device=dev, generator=gen)
+
+        def solve(*a, s=s):
+            return s._ops.cg_solve(s._spec, s.fixed, *a, s.cg_iters)
+
+        diff = chain_count_diff(solve, rhs, 0.1 * rhs, omega, tau,
+                                slice(1, 4))
+        print(f'    {regime} solve, chains 1-3 alone vs among {ch}: max '
+              f'|diff| {diff:.3e}'
+              + (' (bit-identical)' if diff == 0.0 else ''))
+    done(t0)
+
+    t0 = phase('12 ProbitICARGibbs stencil and graph, the same problem '
+               '(32 chains)')
+    probit = {}
+    for regime, (q_in, kw) in inputs.items():
+        s = ProbitICARGibbs(q_in, W5, X5, y5, random_state=LARGE['seed'],
+                            device=dev, **kw)
+        check(s.solver == regime and not s.collapsed
+              and s.spatial_sweeps == 1
+              and s.cg_iters == (15 if regime == 'stencil' else 7),
+              f'unexpected probit {regime} defaults')
+        post, sec, n_launch = run_timed(
+            s, PROBIT_LARGE_SIZE, PROBIT_LARGE_BURNIN, PROBIT_LARGE_CHAINS,
+            counters)
+        check(n_launch == [0, 0], 'the probit path launched a kernel')
+        check_posterior(post, PROBIT_LARGE_CHAINS,
+                        PROBIT_LARGE_SIZE - PROBIT_LARGE_BURNIN, dims)
+        check_state(s.final_carry)
+        check(s.last_solver_resid < 0.2,
+              f'probit {regime} residual {s.last_solver_resid}')
+        drift = plane_drift(s.final_carry.states['eta'])
+        check(drift < 1e-4, f'probit {regime} eta off the hyperplane')
+        print(f'    {regime}: last_solver_resid {s.last_solver_resid:.3e}, '
+              f'|sum eta| / sum |eta| {drift:.2e}')
+        report(f'{kind} ({card})', post, PROBIT_LARGE_SIZE, sec)
+        probit[regime] = post
+    worst = mean_parity(probit['stencil'], probit['graph'])
+    print(f'    worst mean z-ratio, stencil vs graph {worst:.3f}')
+    done(t0)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--stop-after', type=int, default=10)
+    ap.add_argument('--stop-after', type=int, default=13)
     args = ap.parse_args()
 
     import torch
@@ -603,7 +749,11 @@ def main():
           f'{worst_probit:.3f}')
     done(t0)
 
-    t0 = phase('10 report')
+    if args.stop_after < 10:
+        return
+    large_launches = large_n_phases(dev, kind, card, counters)
+
+    t0 = phase('13 report')
     # no single PyTorch call computes either function (a fixed-round
     # rejection sampler; a fixed-iteration PCG), so library_ms is null
     common = {'route': 'cuda', 'library_ms': None}
@@ -613,6 +763,8 @@ def main():
         replaces='occuspytial_tpu/ops/pallas_pg.py:205 (K1), '
                  'occuspytial_tpu/ops/pallas_pg.py:191 (K2)',
         launches=pg_launches, launches_logit_rsr=rsr_pg_launches,
+        launches_logit_stencil=large_launches['stencil'],
+        launches_logit_graph=large_launches['graph'],
         max_abs_err=pg_err, mismatch_share=mismatch,
         ms=pg_ms, plain_ms=pg_plain_ms, bound_ms=pg_bound,
         bound_by='operations' if pg_ops / PEAK_F32 > pg_bytes / PEAK_BYTES

@@ -26,6 +26,7 @@ from .._device import resolve_device, resolve_dtype
 from ..data import as_occupancy_data
 from ..ops import icar
 from ..posterior import PosteriorParameter
+from . import etasetup
 
 
 #: update indices of the init draws (step 0 of the init keys) beyond the
@@ -112,9 +113,43 @@ class GibbsBase:
     #: subclasses set False when they never need the dense precision
     _needs_dense_q = True
 
+    @property
+    def _ops(self):
+        """The op module of the ICAR samplers' matrix-free eta regime
+        (``ops.stencil`` or ``ops.graph``), else None."""
+        return etasetup.OPS.get(getattr(self, 'solver', None))
+
+    @property
+    def _spec(self):
+        """The static spec those ops take: the lattice or the graph."""
+        return self.lattice if self.solver == 'stencil' else self.graph
+
+    def _verify_spatial_precision(self, Q):
+        """Singularity check (reference gibbs/base.py:166-170). The graph
+        regime skips it (a proper CAR surplus is allowed there, and
+        ``ops/graph.build`` checks the CAR structure); the stencil regime
+        checks zero row sums when rho = 1 instead of a shift-invert
+        ``eigsh``, which is slow at 10k+ sites."""
+        solver = getattr(self, 'solver', None)
+        if solver == 'graph':
+            return
+        if solver == 'stencil':
+            import scipy.sparse as sps
+
+            rowsum = (
+                np.abs(np.asarray(Q.sum(axis=1))).max()
+                if sps.issparse(Q) else np.abs(np.asarray(Q).sum(1)).max()
+            )
+            if self.lattice.rho == 1.0 and rowsum > 1e-8:
+                raise ValueError(
+                    'Spatial precision matrix Q must be singular.'
+                )
+            return
+        icar.verify_spatial_precision(Q)
+
     def _configure(self, Q, x_np, hparams):
         """Build the ``fixed`` dict (reference gibbs/base.py:107-164)."""
-        icar.verify_spatial_precision(Q)
+        self._verify_spatial_precision(Q)
         f = self.fixed
         f['X'] = x_np
         if self._needs_dense_q:

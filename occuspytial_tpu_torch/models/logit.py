@@ -9,7 +9,8 @@ tensor):
    visits' (the CUDA kernel on the card, :mod:`..ops.cuda_pg`);
 2. ``spatial_sweeps`` times: tau | eta (gamma), the collapsed beta / eta
    update (one multi-row solve against tau*Q + diag(omega), by the
-   eigenbasis CG or by Cholesky; RSR: eta in the q-dimensional Moran
+   eigenbasis CG, by Cholesky, or by the matrix-free PCG of the lattice
+   stencil or the graph panels; RSR: eta in the q-dimensional Moran
    basis, then beta), and the ASIS log-tau move;
 3. alpha | z, omega_a and z | rest.
 
@@ -35,21 +36,22 @@ from ..ops.mvnorm import (
     sum_to_zero,
 )
 from ..ops.polyagamma import pg_devroye, pg_gamma
+from . import etasetup
 from .base import INIT_ETA_BASIS, GibbsBase
 from .interweave import ancillary_tau_move, noise_from_words, noise_words
 
 #: below this site count the dense Cholesky eta draw is the default
 _CG_AUTO_THRESHOLD = 512
 
-#: from this site count a sparse Q selects the matrix-free graph path
-_GRAPH_AUTO_THRESHOLD = 4096
 
-_NOT_PORTED = {
-    'stencil': "solver='stencil' (the lattice path, ROADMAP.md module "
-               "queue item 12: ops/stencil.py) is not ported yet",
-    'graph': "solver='graph' (the arbitrary-graph path, ROADMAP.md module "
-             "queue item 13: ops/graph.py) is not ported yet",
-}
+def auto_graph_rank(n_sites):
+    """Default deflation rank of the graph solver: ~5% of the site
+    count rounded up to a multiple of 64, floored at 64, capped at 512
+    (the JAX package's policy, measured there: the thin deflation
+    products cost little while each step up in rank cuts the fixed-budget
+    residual severalfold). Shared by the logit and probit samplers."""
+    raw = max(64, int(n_sites) // 20)
+    return min(512, ((raw + 63) // 64) * 64)
 
 #: update indices of a step's draws (see _plan); per sweep i the block
 #: starts at 1 + _SWEEP_UPDATES * i
@@ -69,13 +71,18 @@ class LogitICARGibbs(GibbsBase):
     plain torch rejection sampler; ``'gamma'`` the truncated series.
     Default: ``'pallas_packed'`` on CUDA, ``'devroye'`` on the CPU.
 
-    ``solver``: ``'chol'`` (dense Cholesky) or ``'cg'`` (fixed-budget
-    eigenbasis CG, ``cg_iters`` iterations); ``None`` picks ``'cg'`` from
-    512 sites. ``cg_impl``: ``'xla'`` (default: the torch-op CG of
-    ``ops/cg.py``) or ``'pallas'`` (the CUDA kernel, ``ops/cuda_cg.py``).
-    ``eig_dtype``: storage dtype of the CG eigenbasis (default ``dtype``).
-    The lattice (``'stencil'``) and graph solvers are not ported yet and
-    raise ``NotImplementedError``.
+    ``solver``: ``'chol'`` (dense Cholesky), ``'cg'`` (fixed-budget
+    eigenbasis CG, ``cg_iters`` iterations), ``'stencil'`` (the O(n)
+    matrix-free lattice path, :mod:`..ops.stencil`; ``lattice=(rows, cols,
+    max_neighbors[, rho])`` selects it) or ``'graph'`` (matrix-free panels
+    for any sparse adjacency, :mod:`..ops.graph`, with a deflation basis
+    of ``graph_rank`` bottom eigenvectors and the block-tridiagonal layout
+    per ``graph_block``). ``None`` picks ``'graph'`` for a sparse Q from
+    4096 sites, else ``'cg'`` from 512 sites, else ``'chol'``.
+    ``cg_impl``: ``'xla'`` (default: the torch-op CG of ``ops/cg.py``) or
+    ``'pallas'`` (the CUDA kernel, ``ops/cuda_cg.py``) for ``'cg'``.
+    ``eig_dtype``: storage dtype of the CG eigenbasis and of the graph
+    deflation basis (default ``dtype``).
     """
 
     def __init__(
@@ -113,27 +120,32 @@ class LogitICARGibbs(GibbsBase):
             raise ValueError(f'unknown PG sampling method: {pg_method!r}')
         if solver not in (None, 'chol', 'cg', 'stencil', 'graph'):
             raise ValueError(f'unknown eta solver: {solver!r}')
-        if lattice is not None and solver in (None, 'stencil'):
-            solver = 'stencil'
         n_sites = np.asarray(X).shape[0]
-        if solver is None:
-            import scipy.sparse as sps
-
-            if sps.issparse(Q) and n_sites >= _GRAPH_AUTO_THRESHOLD:
-                solver = 'graph'
-            else:
-                solver = 'cg' if n_sites >= _CG_AUTO_THRESHOLD else 'chol'
-        if solver in _NOT_PORTED and self._solves_lambda:
-            raise NotImplementedError(_NOT_PORTED[solver])
-        self.solver = solver
+        self.solver, self.lattice = etasetup.resolve_solver(
+            solver, lattice, Q, n_sites,
+            'cg' if n_sites >= _CG_AUTO_THRESHOLD else 'chol',
+        )
+        self.graph_rank = int(
+            auto_graph_rank(n_sites) if graph_rank is None else graph_rank
+        )
+        self.graph_block = graph_block
+        self.graph = None
         if cg_iters is None:
-            # the JAX package's measured per-regime budget: 8 for the
-            # spectral CG (cold residual at the float32 floor by 6)
-            cg_iters = {'cg': 8}.get(self.solver, 15)
+            # the JAX package's measured per-regime budgets: 8 for the
+            # spectral CG (cold residual at the float32 floor by 6), 15
+            # for the stencil, 7/10/24 for the graph by deflation rank
+            cg_iters = (
+                8 if self.solver == 'cg' else
+                etasetup.default_cg_iters(self.solver, self.graph_rank)
+            )
         self.cg_iters = int(cg_iters)
         if self.spatial_sweeps is None:
-            # the JAX package's per-regime policy: cg 3, chol 2
-            self.spatial_sweeps = {'cg': 3, 'chol': 2}[self.solver]
+            # the JAX package's per-regime policy: cg 3, chol 2, and 1
+            # for the matrix-free regimes (the eta solve dominates there)
+            self.spatial_sweeps = {'cg': 3, 'chol': 2}.get(self.solver, 1)
+        if self.solver in etasetup.OPS:
+            # neither the dense Q nor its eigendecomposition is built
+            self._needs_dense_q = False
         super().__init__(
             Q, W, X, y, hparams, random_state, dtype=dtype, device=device,
         )
@@ -142,10 +154,9 @@ class LogitICARGibbs(GibbsBase):
         self.eig_dtype = (
             self.dtype if eig_dtype is None else resolve_dtype(eig_dtype)
         )
-        if 'q_eigvecs' in self.fixed:
-            self.fixed['q_eigvecs'] = self.fixed['q_eigvecs'].to(
-                self.eig_dtype
-            )
+        for key in ('q_eigvecs', 'gr_defl_vecs', 'gr_defl_vecs_p'):
+            if key in self.fixed:
+                self.fixed[key] = self.fixed[key].to(self.eig_dtype)
         if pg_method is None:
             pg_method = (
                 'pallas_packed' if self.device.type == 'cuda' else 'devroye'
@@ -158,8 +169,14 @@ class LogitICARGibbs(GibbsBase):
             counts[base + _BETA] = 2 * self.n_beta
             counts[base + _EPS1] = 2 * self.n
             # the field noise: B eps with B B' = Q (n - 1 columns), or
-            # E eps with E E' = Q_rsr (q columns)
-            counts[base + _NOISE] = 2 * self.fixed['sqrt_factor'].shape[1]
+            # E eps with E E' = Q_rsr (q columns), or the matrix-free
+            # factor's normals (one per edge, plus one per site where Q
+            # has a diagonal surplus)
+            counts[base + _NOISE] = 2 * (
+                self.fixed['sqrt_factor'].shape[1]
+                if 'sqrt_factor' in self.fixed
+                else self._ops.noise_dim(self._spec)
+            )
             counts[base + _ASIS] = noise_words(
                 self.asis_method, self.asis_steps
             )
@@ -171,6 +188,21 @@ class LogitICARGibbs(GibbsBase):
 
     def _configure(self, Q, x_np, hparams):
         super()._configure(Q, x_np, hparams)
+        if self.solver == 'stencil':
+            self.fixed.update(
+                etasetup.setup_stencil(self.lattice, Q, self.n)
+            )
+            return
+        if self.solver == 'graph':
+            # the banded panels stay in the model dtype (float32): rounding
+            # Q's entries breaks the ICAR zero row sums, and the JAX
+            # package measured a cold residual of 2.3 with bfloat16 panels
+            # against 8.7e-4 in float32
+            self.graph, arrays = etasetup.setup_graph(
+                Q, self.n, self.graph_rank, self.graph_block
+            )
+            self.fixed.update(arrays)
+            return
         s_eig, u_eig, sqrt_factor = icar.icar_spectral(self.fixed['Q'])
         self.fixed['sqrt_factor'] = sqrt_factor
         if self.solver == 'cg':
@@ -193,9 +225,10 @@ class LogitICARGibbs(GibbsBase):
 
     def _init_state(self, keys, fixed):
         state = self._init_common(keys, fixed)
-        if self.solver == 'cg':
+        if self.solver in ('cg', 'stencil', 'graph'):
             # warm starts of the blocked solve's rows [Omega X, k, 1,
-            # pert] (unblocked: [y, 1]), in Q's eigenbasis
+            # pert] (unblocked: [y, 1]): in Q's eigenbasis for the CG,
+            # the site-basis solutions for the matrix-free regimes
             rows = (self.n_beta + 3) if self.blocked else 2
             chains = keys.shape[0]
             state['eta_warm'] = torch.zeros(
@@ -215,6 +248,14 @@ class LogitICARGibbs(GibbsBase):
         Returns ``(sol, warm_next[, rel])``: the site-basis solutions, the
         carry for the next solve's warm start (eigenbasis for the CG) and
         the per-chain relative residual (0 for the exact Cholesky)."""
+        if self._ops is not None:
+            out = self._ops.cg_solve(
+                self._spec, fixed, rhs, warm, omega, tau, self.cg_iters,
+                return_resid=return_resid,
+            )
+            if return_resid:
+                return out[0], out[0], out[1]
+            return out, out
         if self.solver == 'cg':
             solve = (
                 icar_cg_solve_cuda if self.cg_impl == 'pallas'
@@ -230,7 +271,13 @@ class LogitICARGibbs(GibbsBase):
         return sol, sol
 
     def _lambda_noise(self, eps, tau, fixed):
-        """sqrt(tau) * B eps with B B' = Q; ``eps`` (chains, n - 1)."""
+        """sqrt(tau) * B eps with B B' = Q; ``eps`` (chains, n - 1), or
+        for a matrix-free regime (chains, noise_dim) in its op module's
+        layout."""
+        if self._ops is not None:
+            return torch.sqrt(tau)[:, None] * self._ops.noise(
+                self._spec, fixed, eps
+            )
         return torch.sqrt(tau)[:, None] * (eps @ fixed['sqrt_factor'].T)
 
     def solver_residual(self, carry=None):
@@ -260,10 +307,11 @@ class LogitICARGibbs(GibbsBase):
         sol = self._lambda_solve(
             rhs, torch.zeros_like(rhs), omega, tau, fixed
         )[0]
-        resid = (
-            tau[:, None, None] * (sol @ fixed['Q'].T)
-            + omega[:, None, :] * sol - rhs
+        qsol = (
+            self._ops.matvec(self._spec, fixed, sol) if self._ops is not None
+            else sol @ fixed['Q'].T
         )
+        resid = tau[:, None, None] * qsol + omega[:, None, :] * sol - rhs
         rel = torch.linalg.norm(resid, dim=-1) / torch.linalg.norm(
             rhs, dim=-1
         )
@@ -278,9 +326,10 @@ class LogitICARGibbs(GibbsBase):
 
     def _check_solver_accuracy(self, carry):
         """Once per instance, raise if the cold-start residual of the
-        fixed-budget CG exceeds ``solver_check_tol`` (None skips)."""
+        fixed-budget iterative solver exceeds ``solver_check_tol`` (None
+        skips)."""
         if (
-            self.solver != 'cg'
+            self.solver not in ('cg', 'stencil', 'graph')
             or self.solver_check_tol is None
             or self._solver_checked
             or not self._solves_lambda
@@ -301,6 +350,8 @@ class LogitICARGibbs(GibbsBase):
 
     def _eta_quad(self, eta, fixed):
         """eta' Q eta per chain."""
+        if self._ops is not None:
+            return self._ops.quad_form(self._spec, fixed, eta)
         return torch.sum(eta * (eta @ fixed['Q']), dim=-1)
 
     def _update_tau(self, eta, fixed, g):
@@ -320,7 +371,8 @@ class LogitICARGibbs(GibbsBase):
         [Omega X, k, 1, pert] give every piece of the Schur complement and
         of eta | beta by linearity (see the JAX ``_update_beta_eta_blocked``
         for the derivation). ``eps_beta`` (chains, p), ``eps1`` (chains,
-        n) and ``eps_noise`` (chains, n - 1) are standard normals.
+        n) and ``eps_noise`` (the field noise of :meth:`_lambda_noise`) are
+        standard normals.
         """
         x = fixed['X']
         p = self.n_beta

@@ -1,10 +1,11 @@
 """Probit-link Gibbs samplers (Albert-Chib truncated-normal augmentation).
 
 Port of the JAX package's ``models/probit.py``: ``_ProbitBase``,
-``ProbitRSRGibbs`` and ``ProbitICARGibbs`` with the spectral eta solver
-(reference gibbs/probit.py:27-270). The model adds a site random effect
-``eps`` on top of the spatial term; the latent utilities are one-sided
-truncated normals (:mod:`..ops.truncnorm`). One step, per chain:
+``ProbitRSRGibbs`` and ``ProbitICARGibbs`` with its spectral, stencil
+and graph eta regimes (reference gibbs/probit.py:27-270). The model adds
+a site random effect ``eps`` on top of the spatial term; the latent
+utilities are one-sided truncated normals (:mod:`..ops.truncnorm`). One
+step, per chain:
 
 1. the site utilities omega_b | z (with eps integrated out under the
    collapsed ladder), then the PX scale move;
@@ -36,9 +37,10 @@ from ..ops.mvnorm import (
     precision_mvnorm,
 )
 from ..ops.truncnorm import truncnorm_sign
+from . import etasetup
 from .base import INIT_EPS, INIT_ETA_BASIS, GibbsBase
 from .interweave import ancillary_tau_move, noise_from_words, noise_words
-from .logit import _GRAPH_AUTO_THRESHOLD, _NOT_PORTED
+from .logit import auto_graph_rank
 
 #: update indices of a step's draws: 0 the site utilities, 1 the PX move
 #: before the sweeps; per sweep i the block starts at 2 + _SWEEP_UPDATES *
@@ -461,16 +463,18 @@ class ProbitRSRGibbs(_ProbitBase):
 class ProbitICARGibbs(_ProbitBase):
     """Probit sampler with the full-rank ICAR spatial model.
 
-    Port of the JAX package's ``ProbitICARGibbs`` with
-    ``solver='spectral'``: the eta conditional has precision tau*Q + I on
-    the sum-to-zero hyperplane, diagonal in Q's eigenbasis, so every eta
-    draw and the collapsed beta draw are closed-form spectral transforms
-    of one host ``eigh``. With ``solver=None`` and n <= 256 sites,
-    ``spatial_sweeps`` defaults to 6. ``'stencil'`` (or ``lattice=``)
-    and ``'graph'`` (also the automatic choice for a sparse Q from 4096
-    sites) are not ported yet and raise ``NotImplementedError``;
-    ``cg_iters``, ``graph_rank``, ``graph_block`` and
-    ``solver_check_tol`` belong to them: accepted, unused.
+    Port of the JAX package's ``ProbitICARGibbs``; same constructor plus
+    ``device``. The eta conditional has precision tau*Q + I on the
+    sum-to-zero hyperplane. ``solver='spectral'`` (the default) draws it,
+    and the collapsed beta draw, as closed-form transforms in Q's
+    eigenbasis (one host ``eigh``); with n <= 256 sites
+    ``spatial_sweeps`` then defaults to 6. The matrix-free regimes
+    ``'stencil'`` (``lattice=``) and ``'graph'`` (the automatic choice for
+    a sparse Q from 4096 sites) draw eta by the warm-started PCG of the
+    logit sampler with omega = 1, ``cg_iters`` iterations (15, or 7/10/24
+    for the graph by ``graph_rank``), watched by ``solver_check_tol`` as
+    there; they run the reference-ordered ladder (``collapsed=True``
+    raises: it needs the eigenbasis).
     """
 
     def __init__(
@@ -482,23 +486,34 @@ class ProbitICARGibbs(_ProbitBase):
         if solver not in (None, 'spectral', 'stencil', 'graph'):
             raise ValueError(f'unknown eta solver: {solver!r}')
         n_sites = int(np.asarray(X).shape[0])
-        if lattice is not None and solver is None:
-            solver = 'stencil'
-        if solver is None:
-            import scipy.sparse as sps
-
-            solver = (
-                'graph'
-                if sps.issparse(Q) and n_sites >= _GRAPH_AUTO_THRESHOLD
-                else 'spectral'
-            )
-        if solver in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[solver])
-        self.solver = solver
-        if kwargs.get('spatial_sweeps') is None and n_sites <= 256:
-            # the JAX package's measured policy: at small n the block is
-            # cheap next to the step's fixed cost and tau binds
-            kwargs['spatial_sweeps'] = 6
+        self.solver, self.lattice = etasetup.resolve_solver(
+            solver, lattice, Q, n_sites, 'spectral'
+        )
+        self.graph_rank = int(
+            auto_graph_rank(n_sites) if graph_rank is None else graph_rank
+        )
+        self.graph_block = graph_block
+        self.graph = None
+        self.cg_iters = int(
+            etasetup.default_cg_iters(self.solver, self.graph_rank)
+            if cg_iters is None else cg_iters
+        )
+        self.solver_check_tol = solver_check_tol
+        self._solver_checked = False
+        if self.solver == 'spectral':
+            if kwargs.get('spatial_sweeps') is None and n_sites <= 256:
+                # the JAX package's measured policy: at small n the block
+                # is cheap next to the step's fixed cost and tau binds
+                kwargs['spatial_sweeps'] = 6
+        else:
+            if kwargs.get('collapsed'):
+                raise ValueError(
+                    'the collapsed (beta, eta, eps) ladder requires '
+                    "the spectral eta solver; use solver='spectral' "
+                    'or collapsed=False'
+                )
+            kwargs['collapsed'] = False
+            self._needs_dense_q = False
         super().__init__(
             Q, W, X, y, hparams, random_state, dtype=dtype, **kwargs
         )
@@ -507,6 +522,15 @@ class ProbitICARGibbs(_ProbitBase):
         super()._configure(Q, x_np, hparams)
         f = self.fixed
         f['XTX_plus_bprec'] = x_np.T @ x_np + f['b_prec']
+        if self.solver == 'stencil':
+            f.update(etasetup.setup_stencil(self.lattice, Q, self.n))
+            return
+        if self.solver == 'graph':
+            self.graph, arrays = etasetup.setup_graph(
+                Q, self.n, self.graph_rank, self.graph_block
+            )
+            f.update(arrays)
+            return
         s_eig, u_eig, _ = icar.icar_spectral(f['Q'])
         f['q_eigvals'] = s_eig
         f['q_eigvecs'] = u_eig
@@ -520,21 +544,109 @@ class ProbitICARGibbs(_ProbitBase):
 
     @property
     def _eta_noise_dim(self):
-        return self.n
+        """n for the spectral draw; for a matrix-free regime n (the
+        observation noise) plus its field noise (one per edge, plus one
+        per site where Q has a diagonal surplus)."""
+        if self._ops is None:
+            return self.n
+        return self.n + self._ops.noise_dim(self._spec)
 
     def _eta_quad(self, eta, fixed):
-        return torch.clamp(
-            torch.sum(eta * (eta @ fixed['Q']), dim=-1), min=0.0
-        )
+        if self._ops is not None:
+            quad = self._ops.quad_form(self._spec, fixed, eta)
+        else:
+            quad = torch.sum(eta * (eta @ fixed['Q']), dim=-1)
+        return torch.clamp(quad, min=0.0)
+
+    def _init_state(self, keys, fixed):
+        state = super()._init_state(keys, fixed)
+        if self._ops is not None:
+            # warm start of the [b, 1] solves and the running residual max
+            chains = keys.shape[0]
+            state['eta_warm'] = torch.zeros(
+                (chains, 2, self.n), dtype=self.dtype, device=self.device
+            )
+            state['solver_resid'] = torch.zeros(
+                chains, dtype=self.dtype, device=self.device
+            )
+        return state
 
     def _update_eta(self, state, omega_b, tau, fixed, eps):
-        """The constrained draw with unit noise (closed form in Q's
-        eigenbasis, :func:`..ops.mvnorm.constrained_icar_mvnorm_unit`)."""
+        """The constrained draw with unit noise: closed form in Q's
+        eigenbasis (:func:`..ops.mvnorm.constrained_icar_mvnorm_unit`), or
+        for a matrix-free regime its ``constrained_mvnorm`` with omega = 1
+        from the warm start, ``eps`` split into the observation noise (n)
+        and the field noise."""
         b = omega_b - state['beta'] @ fixed['X'].T - state['eps']
-        eta = constrained_icar_mvnorm_unit(
-            b, tau, fixed['q_eigvecs'], fixed['q_eigvals'], eps
+        if self._ops is None:
+            eta = constrained_icar_mvnorm_unit(
+                b, tau, fixed['q_eigvecs'], fixed['q_eigvals'], eps
+            )
+            return eta, eta
+        eta, warm, rel = self._ops.constrained_mvnorm(
+            self._spec, fixed, b, torch.ones_like(b), tau,
+            state['eta_warm'], self.cg_iters, eps[:, :self.n],
+            eps[:, self.n:], return_resid=True,
         )
+        # the step passes its own state dict: the warm start rides along
+        state['eta_warm'] = warm
+        self._track_resid(state, rel)
         return eta, eta
+
+    # ------------- iterative-solver accuracy guardrail ---------------- #
+
+    def init_carry(self, chains=2, start=None):
+        """Build the resumable carry, then run the one-time solver
+        accuracy check (the logit sampler's guardrail)."""
+        carry = super().init_carry(chains, start)
+        self._check_solver_accuracy(carry)
+        return carry
+
+    def _check_solver_accuracy(self, carry):
+        """Once per instance, raise if the cold-start residual of a
+        matrix-free regime exceeds ``solver_check_tol`` (None skips)."""
+        if (
+            self._ops is None
+            or self.solver_check_tol is None
+            or self._solver_checked
+        ):
+            return
+        self._solver_checked = True
+        resid = self.solver_residual(carry)
+        if resid > self.solver_check_tol:
+            raise RuntimeError(
+                f'eta solver ({self.solver!r}, cg_iters='
+                f'{self.cg_iters}) did not converge: cold-start '
+                f'relative residual {resid:.2e} exceeds '
+                f'solver_check_tol={self.solver_check_tol:.0e}. '
+                'Increase cg_iters (or pass solver_check_tol=None to '
+                'bypass this check).'
+            )
+
+    def solver_residual(self, carry=None):
+        """Max relative residual of a matrix-free eta solve, run cold on
+        the [b, 1] right-hand sides at chain 0 of ``carry`` (default: a
+        fresh one-chain carry): ``max ||(tau*Q + I) x - rhs|| / ||rhs||``.
+        Same contract as :meth:`.logit.LogitICARGibbs.solver_residual`."""
+        if carry is None:
+            carry = self.init_carry(chains=1)
+        state = {k: v[:1] for k, v in carry.states.items()}
+        fixed = self.fixed
+        b = state['omega_b'] - state['beta'] @ fixed['X'].T - state['eps']
+        tau = state['tau']
+        rhs = torch.stack([b, torch.ones_like(b)], dim=1)
+        sol = self._ops.cg_solve(
+            self._spec, fixed, rhs, torch.zeros_like(rhs),
+            torch.ones_like(b), tau, self.cg_iters,
+        )
+        resid = (
+            tau[:, None, None] * self._ops.matvec(self._spec, fixed, sol)
+            + sol - rhs
+        )
+        rel = torch.linalg.norm(resid, dim=-1) / torch.linalg.norm(
+            rhs, dim=-1
+        )
+        return float(rel.max())
 
     # In Q's eigenbasis, with eps and eta out, Cov(U'u) = diag(2 + 1/(tau
     # s_i)) on the spatial subspace and 2 on the null direction, so the

@@ -16,7 +16,12 @@ configuration (bench.py):
 - ``probit_icar``: ``ProbitICARGibbs``, 10 x 10 lattice, 1024 chains
   (config 2);
 - ``probit_rsr``: ``ProbitRSRGibbs``, the same lattice, 512 chains
-  (config 2b).
+  (config 2b);
+- ``logit_stencil`` / ``logit_graph``: ``LogitICARGibbs`` with
+  ``lattice=(100, 100, 8)`` (32 chains, config 5) or ``solver='graph'``
+  on the same Q as a sparse matrix (64 chains, config 5g), 10,000 sites;
+- ``probit_stencil`` / ``probit_graph``: ``ProbitICARGibbs`` on the same
+  problem, 32 chains.
 
     python3 scripts/torch_profile_step.py [--model logit_icar] [--steps 20]
 """
@@ -49,7 +54,8 @@ def main():
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--warmup', type=int, default=10)
     ap.add_argument('--model', default='logit_icar', choices=(
-        'logit_icar', 'logit_rsr', 'probit_icar', 'probit_rsr'))
+        'logit_icar', 'logit_rsr', 'probit_icar', 'probit_rsr',
+        'logit_stencil', 'logit_graph', 'probit_stencil', 'probit_graph'))
     ap.add_argument('--chains', type=int, default=None,
                     help='default: the configuration\'s chain count')
     ap.add_argument('--cg-impl', default='xla', choices=('xla', 'pallas'))
@@ -59,7 +65,12 @@ def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import make_lattice_dataset
+    from chip_smoke import (
+        LARGE,
+        LARGE_CHAINS,
+        PROBIT_LARGE_CHAINS,
+        make_lattice_dataset,
+    )
     from occuspytial_tpu_torch import (
         LogitICARGibbs,
         LogitRSRGibbs,
@@ -76,7 +87,22 @@ def main():
         capture_output=True, text=True, timeout=60, check=True,
     )
     print(smi.stdout.strip())
-    if args.model.startswith('logit'):
+    regime = args.model.split('_')[1]
+    if regime in ('stencil', 'graph'):
+        import scipy.sparse as sps
+
+        Q, W, X, y, *_ = make_lattice_dataset(
+            LARGE['rows'], LARGE['cols'], ns=LARGE['ns'], seed=LARGE['seed'],
+            min_v=LARGE['min_v'], max_v=LARGE['max_v'])
+        kw = (dict(lattice=(LARGE['rows'], LARGE['cols'], 8))
+              if regime == 'stencil' else dict(solver='graph'))
+        q_in = sps.csr_matrix(Q) if regime == 'graph' else Q
+        cls = LogitICARGibbs if args.model.startswith('logit') \
+            else ProbitICARGibbs
+        s = cls(q_in, W, X, y, random_state=LARGE['seed'], **kw)
+        chains = (LARGE_CHAINS[regime] if cls is LogitICARGibbs
+                  else PROBIT_LARGE_CHAINS)
+    elif args.model.startswith('logit'):
         Q, W, X, y, *_ = make_data(n=1000, ns=500, p=3, q=3, min_v=2,
                                    max_v=10, random_state=7)
         if args.model == 'logit_icar':

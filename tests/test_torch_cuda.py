@@ -329,3 +329,119 @@ def test_probit_samplers_run_and_are_reproducible(dev, cls, collapsed):
     _run_twice(lambda: sampler(Q, W, X, y, random_state=4,
                                collapsed=collapsed), 10, 8)
     assert (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches) == before
+
+
+# ---------------------- the large-n eta regimes ------------------------ #
+
+def _large_n_ops():
+    """(module, spec, CPU fixed tensors) for a queen lattice with rho < 1
+    (stencil), and the banded and ELL layouts of a CAR graph on it."""
+    from occuspytial_tpu_torch.models import etasetup
+    from occuspytial_tpu_torch.ops import graph as tgr
+    from occuspytial_tpu_torch.ops import stencil as tst
+
+    out = []
+    lat = tst.LatticeSpec(20, 30, 8, 0.8)
+    out.append((tst, lat, {k: torch.as_tensor(v)
+                           for k, v in tst.setup(lat).items()}))
+    q = lattice_precision(20, 30, 8, 0.9)
+    for block in ('auto', 0):
+        spec, arrays = etasetup.setup_graph(q, 600, 32, block)
+        out.append((tgr, spec, {k: torch.as_tensor(v)
+                                for k, v in arrays.items()}))
+    assert out[1][1].block == 128 and out[2][1].block == 0
+    return out
+
+
+def test_large_n_ops_match_their_cpu_results(dev):
+    """Every op of the stencil and graph regimes on the card against the
+    same op on the CPU: float32 sums in other orders, 1e-5 of the largest
+    entry for the operators, 1e-4 for the solves."""
+    from occuspytial_tpu_torch.ops import graph as tgr
+
+    gen = np.random.default_rng(0)
+    for mod, spec, fixed in _large_n_ops():
+        gfixed = {k: v.to(dev) for k, v in fixed.items()}
+        n = spec.n
+        v = torch.tensor(gen.standard_normal((4, 3, n)), dtype=torch.float32)
+        eps = torch.tensor(gen.standard_normal((4, mod.noise_dim(spec))),
+                           dtype=torch.float32)
+        omega = torch.tensor(gen.uniform(0.05, 0.3, (4, n)),
+                             dtype=torch.float32)
+        tau = torch.tensor(gen.uniform(0.5, 30.0, 4), dtype=torch.float32)
+        cases = [
+            (lambda f, a: mod.matvec(spec, f, a[0]), 1e-5),
+            (lambda f, a: mod.quad_form(spec, f, a[0]), 1e-5),
+            (lambda f, a: mod.noise(spec, f, a[1]), 1e-5),
+            (lambda f, a: mod.cg_solve(spec, f, a[0], 0.1 * a[0], a[2],
+                                       a[3], 12, return_resid=True)[0],
+             1e-4),
+        ]
+        if mod is tgr:
+            cases.append((lambda f, a: tgr.precond_apply(
+                spec, f, a[3][:, None, None], a[2][:, None], a[0]), 1e-5))
+            if spec.block:
+                vp = torch.nn.functional.pad(v, (0, spec.n_pad - n))
+                cases.append((lambda f, a: tgr.banded_matvec(
+                    spec, f, vp.to(a[0].device)), 1e-5))
+        else:
+            cases.append((lambda f, a: mod.precond_apply(
+                spec, f, 3.0, 0.2, a[0]), 1e-5))
+        args = (v, eps, omega, tau)
+        gargs = tuple(a.to(dev) for a in args)
+        for fn, tol in cases:
+            want = fn(fixed, args)
+            got = fn(gfixed, gargs).cpu()
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= tol * scale
+
+
+def test_large_n_noise_is_bit_reproducible(dev):
+    """The graph noise sums each site's incident edges in a fixed order (no
+    atomics): two launches give the same bits; so does the stencil's."""
+    for mod, spec, fixed in _large_n_ops():
+        gfixed = {k: v.to(dev) for k, v in fixed.items()}
+        gen = torch.Generator(device=dev).manual_seed(1)
+        eps = torch.randn((64, mod.noise_dim(spec)), device=dev,
+                          generator=gen)
+        a = mod.noise(spec, gfixed, eps)
+        b = mod.noise(spec, gfixed, eps)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('regime', ['stencil', 'graph'])
+def test_large_n_logit_launches_the_pg_kernel_and_is_reproducible(dev,
+                                                                  regime):
+    """The matrix-free logit paths draw PG through the kernel once a step
+    plus once for the cold-start check; one seed gives one run."""
+    import scipy.sparse as sps
+
+    Q, W, X, y, *_ = make_lattice_dataset(20, 30, ns=300, seed=5)
+    kw = (dict(lattice=(20, 30, 8)) if regime == 'stencil'
+          else dict(solver='graph'))
+    q_in = sps.csr_matrix(Q) if regime == 'graph' else Q
+
+    def make():
+        s = LogitICARGibbs(q_in, W, X, y, random_state=4, **kw)
+        assert s.solver == regime and s.pg_method == 'pallas_packed'
+        return s
+
+    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    post = _run_twice(make, 12, 8)
+    assert pg_devroye_cuda.launches == before[0] + 2 * 13
+    assert icar_cg_solve_cuda.launches == before[1]
+    assert post['beta'].shape == (8, 12, 3)
+
+
+@pytest.mark.parametrize('regime', ['stencil', 'graph'])
+def test_large_n_probit_runs_and_is_reproducible(dev, regime):
+    import scipy.sparse as sps
+
+    Q, W, X, y, *_ = make_lattice_dataset(20, 30, ns=300, seed=5)
+    kw = (dict(lattice=(20, 30, 8)) if regime == 'stencil'
+          else dict(solver='graph'))
+    q_in = sps.csr_matrix(Q) if regime == 'graph' else Q
+    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    _run_twice(lambda: ProbitICARGibbs(q_in, W, X, y, random_state=4, **kw),
+               10, 8)
+    assert (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches) == before

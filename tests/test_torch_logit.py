@@ -279,9 +279,18 @@ def test_default_device_without_cuda_raises(data, monkeypatch):
     dict(solver='stencil'), dict(solver='graph'), dict(lattice=(10, 15)),
 ])
 def test_unported_solvers_raise(data, kwargs):
+    """The matrix-free regimes, once unported, now resolve as the JAX
+    sampler's do: the same solver, or the same ValueError (a stencil
+    without a lattice; a lattice that is not this Q's)."""
     Q, W, X, y = data[:4]
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        LogitICARGibbs(Q, W, X, y, device='cpu', **kwargs)
+    try:
+        want = JaxLogit(Q, W, X, y, **kwargs).solver
+    except ValueError as exc:
+        with pytest.raises(ValueError) as got:
+            LogitICARGibbs(Q, W, X, y, device='cpu', **kwargs)
+        assert str(got.value) == str(exc)
+        return
+    assert LogitICARGibbs(Q, W, X, y, device='cpu', **kwargs).solver == want
 
 
 def test_options_and_defaults(data):

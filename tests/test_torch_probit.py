@@ -311,10 +311,15 @@ def test_defaults_options_and_unported_solvers(data):
     assert ProbitICARGibbs(Q, W, X, y, spatial_sweeps=2,
                            device='cpu').spatial_sweeps == 2
     assert ProbitRSRGibbs(Q, W, X, y, device='cpu').spatial_sweeps == 1
-    for kwargs in (dict(solver='stencil'), dict(solver='graph'),
-                   dict(lattice=(10, 10))):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ProbitICARGibbs(Q, W, X, y, device='cpu', **kwargs)
+    # the matrix-free regimes, once unported, now construct (the
+    # reference-ordered ladder, one sweep); a stencil needs its lattice
+    with pytest.raises(ValueError, match='requires the `lattice`'):
+        ProbitICARGibbs(Q, W, X, y, solver='stencil', device='cpu')
+    for kwargs, solver in ((dict(solver='graph'), 'graph'),
+                           (dict(lattice=(10, 10)), 'stencil')):
+        s = ProbitICARGibbs(Q, W, X, y, device='cpu', **kwargs)
+        assert (s.solver, s.collapsed, s.spatial_sweeps) == (solver, False,
+                                                             1)
     for bad in (dict(solver='x'), dict(asis_method='x'),
                 dict(spatial_sweeps=0)):
         with pytest.raises(ValueError):
