@@ -9,9 +9,12 @@ problem (n = 1000 sites, 64 chains) through both eta-solve
 implementations, then ``LogitRSRGibbs`` (n = 1000, q = 100, 64 chains),
 the two probit samplers on the 10 x 10 lattice (1024 and 512 chains),
 and both ICAR samplers' matrix-free eta regimes on the 10,000-site
-lattice (``solver='stencil'`` and ``'graph'``, 32 and 64 chains), and
-prints one JSON line of per-kernel numbers and, last, ``{"ok": true,
-"device": {...}}``. Any failed check raises, so the script exits non-zero
+lattice (``solver='stencil'`` and ``'graph'``, 32 and 64 chains), then
+``parallel.sample_parallel`` (the headline problem's chains over worker
+processes) and the site-sharded lattice and graph solves over
+``torch.distributed`` worlds (gloo ranks on one card, NCCL one rank per
+card), and prints one JSON line of per-kernel numbers and, last,
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits non-zero
 without that line; it also fails without CUDA. ``--stop-after N`` ends
 after phase N (a quick build-and-check run).
 """
@@ -49,6 +52,16 @@ LARGE_SIZE, LARGE_BURNIN = 512, 128
 PROBIT_LARGE_CHAINS = 32
 PROBIT_LARGE_SIZE, PROBIT_LARGE_BURNIN = 256, 64
 RERUN_SIZE = 16
+# phase 13: sample_parallel on the headline problem (phase 6's sampler)
+PAR_SIZE_A, PAR_SIZE_B = 16, 6
+# phase 14: the sharded solves on config 5's lattice (32 chains x 6 rows)
+# and config 5g's graph in 256-site tiles (40 blocks; 64 chains x 6 rows)
+SHARD_RANKS = 4
+STENCIL_ROWS, GRAPH_ROWS = 32 * 6, 64 * 6
+STENCIL_ITERS, GRAPH_ITERS = 200, 24
+# and cut short, where the preconditioner and the sums decide the iterate
+SHORT_ITERS = 3
+GRAPH_BLOCK, GRAPH_RANK = 256, 512
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
 #: op/s, dense TF32 tensor-core op/s
@@ -212,6 +225,287 @@ def chain_count_diff(solve, rhs, x0, omega, tau, keep):
     return float((full[keep] - few).abs().max())
 
 
+def timed_rank(fn, reps, *args):
+    """Per-rank: ``fn(*args)`` once, then ``reps`` more calls timed on the
+    host clock between card synchronisations; returns (the output, its
+    milliseconds a call as a 1-vector)."""
+    import torch
+    import torch.distributed as dist
+
+    def sync():
+        if out.is_cuda:
+            torch.cuda.synchronize()
+
+    out = fn(*args)
+    sync()
+    dist.barrier()
+    ts = time.perf_counter()
+    for _ in range(reps):
+        out = fn(*args)
+    sync()
+    ms = (time.perf_counter() - ts) * 1e3 / reps
+    return out, torch.tensor([ms])
+
+
+def parallel_phase(dev, kind, card, counters, data, post_6, sec_6):
+    """Phase 13: ``sample_parallel`` on the headline problem with
+    ``cg_impl='pallas'`` and phase 6's seed. Returns the K1 and K3
+    launches of the full-width two-worker run."""
+    import torch
+
+    from occuspytial_tpu_torch import LogitICARGibbs
+    from occuspytial_tpu_torch.parallel import chain_mesh, sample_parallel
+
+    t0 = phase('13 sample_parallel: headline problem, cg_impl=pallas, '
+               'chains over worker processes')
+
+    def make():
+        return LogitICARGibbs(*data, random_state=HEAD['random_state'] + 1,
+                              device=dev, cg_impl='pallas')
+
+    # (a) one worker on one card, against the same run in this process:
+    # the same chain count at the same shapes, so the same bits
+    s = make()
+    mesh = chain_mesh(n_devices=1)
+    post_p = sample_parallel(s, PAR_SIZE_A, chains=CHAINS, mesh=mesh)
+    carry_p = s.final_carry
+    post_l = s.sample(PAR_SIZE_A, chains=CHAINS, progressbar=False)
+    carry_l = s.final_carry
+    same = all(np.array_equal(post_p[k], post_l[k])
+               for k in ('alpha', 'beta', 'tau'))
+    same = same and torch.equal(carry_p.keys, carry_l.keys) and all(
+        torch.equal(carry_p.states[k], carry_l.states[k])
+        for k in carry_l.states)
+    print(f'    (a) mesh {[str(d) for d in mesh]}, {PAR_SIZE_A} steps, '
+          f'{CHAINS} chains: draws and final carry '
+          f'{"bit-identical" if same else "differ"} to one process')
+    check(same, 'one worker on the card differs from one process')
+    # (b) two workers on one card: 32 chains each
+    post_p = sample_parallel(s, PAR_SIZE_B, chains=CHAINS,
+                             mesh=['cuda:0'] * 2)
+    post_l = s.sample(PAR_SIZE_B, chains=CHAINS, progressbar=False)
+    diff = 0.0
+    for name in ('alpha', 'beta', 'tau'):
+        np.testing.assert_allclose(post_p[name], post_l[name], rtol=2e-4,
+                                   atol=1e-5)
+        diff = max(diff, float(np.abs(post_p[name] - post_l[name]).max()))
+    print(f'    (b) 2 workers on cuda:0, {PAR_SIZE_B} steps: max |diff| '
+          f'{diff:.3e}' + (' (bit-identical)' if diff == 0.0 else ''))
+    # (c) two workers at full width
+    s = make()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    post = sample_parallel(s, CG_SIZE, burnin=CG_BURNIN, chains=CHAINS,
+                           mesh=['cuda:0'] * 2)
+    wall = time.perf_counter() - ts
+    pg_n, cg_n = (c.launches for c in counters)
+    # the parent's cold-start check launches each kernel once; each
+    # worker then launches K1 once a step and K3 three times a step
+    check(pg_n == 1 + 2 * CG_SIZE,
+          f'parallel K1 launches {pg_n} != {1 + 2 * CG_SIZE}')
+    check(cg_n == 1 + 2 * 3 * CG_SIZE,
+          f'parallel K3 launches {cg_n} != {1 + 2 * 3 * CG_SIZE}')
+    check_posterior(post, CHAINS, CG_SIZE - CG_BURNIN,
+                    {'alpha': s.n_alpha, 'beta': s.n_beta, 'tau': 0})
+    check_state(s.final_carry)
+    check(s.last_solver_resid <= s.solver_check_tol,
+          f'parallel solver residual {s.last_solver_resid}')
+    worst = mean_parity(post_6, post)
+    ess = min_pooled_ess(post)
+    busy = max(s.worker_seconds)
+    print(f'    (c) 2 workers on cuda:0, {CHAINS} chains ({CHAINS // 2} '
+          f'each), {CG_SIZE}/{CG_BURNIN} draws: K1 {pg_n}, K3 {cg_n} '
+          f'launches, last_solver_resid {s.last_solver_resid:.3e}, worst '
+          f'mean z-ratio vs phase 6 {worst:.3f}')
+    print(f'    {kind} ({card}): {CG_SIZE / wall:.2f} it/s over the whole '
+          f'call ({wall:.2f} s, worker start-up included), '
+          f'{CG_SIZE / busy:.2f} it/s over the workers\' sampling '
+          f'({", ".join(f"{x:.2f}" for x in s.worker_seconds)} s), min '
+          f'pooled bulk-ESS {ess:.1f}, ESS/s {ess / wall:.2f}')
+    print(f'    phase 6 in one process ({card}): {CG_SIZE / sec_6:.2f} it/s')
+    done(t0)
+    return pg_n, cg_n
+
+
+def sharded_phase(dev, card):
+    """Phase 14: the site-sharded stencil and graph solves at config 5's
+    width over gloo ranks on one card and an NCCL world of one rank per
+    card, against the single-device operators and a float64 host solve."""
+    import scipy.sparse as sps
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from occuspytial_tpu_torch.ops import graph, stencil
+    from occuspytial_tpu_torch.ops.cg import pcg
+    from occuspytial_tpu_torch.ops.icar import lattice_precision
+    from occuspytial_tpu_torch.parallel import sharded_graph as sg
+    from occuspytial_tpu_torch.parallel import sharded_stencil as ss
+    from occuspytial_tpu_torch.parallel._spmd import World
+
+    t0 = phase(f'14 sharded solves: config 5 lattice and 5g graph, gloo '
+               f'({SHARD_RANKS} ranks on cuda:0) and NCCL')
+    n_cards = torch.cuda.device_count()
+    # the worlds start side by side; each run waits for its ranks
+    worlds = {
+        f'gloo x{SHARD_RANKS}': World(SHARD_RANKS, ['cuda:0'] * SHARD_RANKS),
+        'gloo x1': World(1, ['cuda:0']),
+        f'nccl x{n_cards}': World(n_cards,
+                                  [f'cuda:{i}' for i in range(n_cards)],
+                                  backend='nccl'),
+    }
+    gloo4, gloo1, nccl = worlds
+    try:
+        q5 = sps.csr_matrix(lattice_precision(LARGE['rows'], LARGE['cols'],
+                                              8).astype(float))
+        gen = np.random.default_rng(14)
+
+        def rel(a, b):
+            return float(np.abs(a - b).max() / np.abs(b).max())
+
+        def short_check(label, solve, args, dims, want):
+            """The sharded CG cut short at ``SHORT_ITERS`` in every world
+            against the single-device PCG ``want`` at the same depth."""
+            for name, w in worlds.items():
+                e = rel(w.run(solve, args, dims), want)
+                print(f'    {label} CG cut short at {SHORT_ITERS} '
+                      f'iterations, {name} vs one device: {e:.3e}')
+                check(e <= 1e-5, f'{label} sharded CG cut short differs '
+                      f'from one device ({name})')
+
+        def host_check(label, q, x, rhs, omega, tau):
+            """Each row's relative residual in float64 and its relative
+            distance to a float64 sparse solve."""
+            lam = (tau * q + sps.diags(omega.astype(np.float64))).tocsc()
+            x64 = spla.splu(lam).solve(rhs.T.astype(np.float64)).T
+            res = lam @ x.T.astype(np.float64) - rhs.T
+            rr = np.linalg.norm(res, axis=0) / np.linalg.norm(rhs, axis=1)
+            err = (np.linalg.norm(x - x64, axis=1)
+                   / np.linalg.norm(x64, axis=1))
+            print(f'    {label}: per-row relative residual (float64) max '
+                  f'{rr.max():.3e} median {np.median(rr):.3e}; distance '
+                  f'to the float64 solve max {err.max():.3e}')
+            check(np.isfinite(x).all(), f'{label} non-finite')
+
+        # -- the lattice
+        spec = stencil.LatticeSpec(LARGE['rows'], LARGE['cols'], 8)
+        ss.check_extent(spec, SHARD_RANKS)
+        deg = stencil.degree_grid(spec).astype(np.float32)
+        n = spec.n
+        v = gen.standard_normal((STENCIL_ROWS, spec.rows, spec.cols)).astype(
+            np.float32)
+        single = stencil.matvec(
+            spec, {'lat_deg': torch.as_tensor(deg, device=dev)},
+            torch.as_tensor(v.reshape(STENCIL_ROWS, n), device=dev),
+        ).cpu().numpy()
+        omega = gen.uniform(0.05, 0.3, n).astype(np.float32)
+        tau = np.float32(gen.uniform(1.0, 30.0))
+        rhs = gen.standard_normal((STENCIL_ROWS, n)).astype(np.float32)
+        args = (spec, deg, rhs, np.zeros_like(rhs), omega, tau,
+                STENCIL_ITERS)
+        dims = (None, 0, -1, -1, 0, None, None)
+        sol, ms = {}, {}
+        for name, w in worlds.items():
+            got = w.run(ss.matvec_sharded, (spec, deg, v), (None, 0, -2),
+                        out_dim=-2).reshape(STENCIL_ROWS, n)
+            e = rel(got, single)
+            print(f'    stencil matvec, {name}: {e:.3e} of max |Qv| '
+                  + ('(bit-identical)' if e == 0.0 else ''))
+            check(e <= 1e-6, f'stencil sharded matvec differs ({name})')
+            sol[name], t = w.run(timed_rank, (ss.cg_solve_sharded, 2) + args,
+                                 (None, None) + dims)
+            ms[name] = float(t.max()) / STENCIL_ITERS
+        for name in (gloo4, nccl):
+            e = rel(sol[name], sol[gloo1])
+            print(f'    stencil CG ({STENCIL_ITERS} iterations, '
+                  f'{STENCIL_ROWS} rows), {name} vs 1 rank: {e:.3e}')
+            check(e <= 1e-4, f'stencil sharded CG differs ({name})')
+        host_check('stencil CG, gloo', q5, sol[gloo4], rhs, omega,
+                   float(tau))
+        # one device: the lattice matvec in the PCG, the Jacobi diagonal
+        fixed = {'lat_deg': torch.as_tensor(deg, device=dev)}
+        om = torch.as_tensor(omega, device=dev)
+        jac = 1.0 / (float(tau) * fixed['lat_deg'].reshape(-1) + om)
+        want = pcg(
+            lambda x: float(tau) * stencil.matvec(spec, fixed, x) + om * x,
+            lambda r: r * jac, torch.as_tensor(rhs, device=dev),
+            torch.zeros(rhs.shape, device=dev), SHORT_ITERS,
+        ).cpu().numpy()
+        short_check('stencil', ss.cg_solve_sharded,
+                    args[:-1] + (SHORT_ITERS,), dims, want)
+        print(f'    stencil CG ms per iteration ({card}): '
+              + ', '.join(f'{k} {v:.3f} ({"NCCL" if "nccl" in k else "gloo, staged through the host"})'
+                          for k, v in ms.items()))
+
+        # -- the graph
+        tb = time.perf_counter()
+        gspec, arrs = graph.build(q5, deflate=GRAPH_RANK, block=GRAPH_BLOCK)
+        print(f'    graph build (block {GRAPH_BLOCK}, rank {GRAPH_RANK}) '
+              f'{time.perf_counter() - tb:.2f} s: {gspec}')
+        sg.check_extent(gspec, SHARD_RANKS)
+        nb, bs = gspec.n_pad // gspec.block, gspec.block
+        panels = (arrs['gr_bd_diag'], arrs['gr_bd_sub'], arrs['gr_bd_sup'])
+        perm, pad = arrs['gr_perm'], gspec.n_pad - gspec.n
+        v = np.pad(gen.standard_normal((GRAPH_ROWS, n))[:, perm],
+                   ((0, 0), (0, pad))).astype(np.float32)
+        fixed = {k: torch.as_tensor(a, device=dev) for k, a in arrs.items()}
+        single = graph.banded_matvec(gspec, fixed, torch.as_tensor(
+            v, device=dev)).cpu().numpy()
+        omega = gen.uniform(0.05, 0.3, n).astype(np.float32)
+        tau = np.float32(gen.uniform(1.0, 30.0))
+        rhs = gen.standard_normal((GRAPH_ROWS, n)).astype(np.float32)
+        rhs_p = np.pad(rhs[:, perm], ((0, 0), (0, pad))).astype(np.float32)
+        omega_p = np.pad(omega[perm], (0, pad),
+                         constant_values=1.0).astype(np.float32)
+        args = (panels, rhs_p, np.zeros_like(rhs_p), omega_p, tau,
+                GRAPH_ITERS, arrs['gr_defl_vecs_p'], arrs['gr_defl_vals'])
+        dims = ((0, 0, 0), -1, -1, 0, None, None, 0, None)
+        sol, ms = {}, {}
+        for name, w in worlds.items():
+            got = w.run(sg.banded_matvec_sharded,
+                        panels + (v.reshape(GRAPH_ROWS, nb, bs),),
+                        (0, 0, 0, -2), out_dim=-2).reshape(GRAPH_ROWS, -1)
+            e = rel(got, single)
+            print(f'    graph matvec, {name}: {e:.3e} of max |Qv| '
+                  + ('(bit-identical)' if e == 0.0 else ''))
+            check(e <= 1e-6, f'graph sharded matvec differs ({name})')
+            sol[name], t = w.run(timed_rank, (sg.cg_solve_sharded, 2) + args,
+                                 (None, None) + dims)
+            ms[name] = float(t.max()) / GRAPH_ITERS
+        for name in (gloo4, nccl):
+            e = rel(sol[name], sol[gloo1])
+            print(f'    graph CG ({GRAPH_ITERS} iterations, {GRAPH_ROWS} '
+                  f'rows, deflation rank {GRAPH_RANK}), {name} vs 1 rank: '
+                  f'{e:.3e}')
+            check(e <= 1e-4, f'graph sharded CG differs ({name})')
+        x = sol[gloo4][:, :n][:, arrs['gr_iperm']]
+        host_check('graph CG, gloo', q5, x, rhs, omega, float(tau))
+        # one device: the banded matvec and the deflated-Jacobi apply of
+        # ops/graph in the PCG, with cbar over the padded lanes as the
+        # sharded solve takes it
+        om = torch.as_tensor(omega_p, device=dev)
+        jac = 1.0 / (float(tau) * fixed['gr_deg_p'] + om)
+        want = pcg(
+            lambda x: float(tau) * graph.banded_matvec(gspec, fixed, x)
+            + om * x,
+            lambda r: graph._deflated_jacobi(
+                jac, fixed['gr_defl_vecs_p'], fixed['gr_defl_vals'],
+                float(tau), torch.mean(om), r),
+            torch.as_tensor(rhs_p, device=dev),
+            torch.zeros(rhs_p.shape, device=dev), SHORT_ITERS,
+        ).cpu().numpy()
+        short_check('graph', sg.cg_solve_sharded,
+                    args[:5] + (SHORT_ITERS,) + args[6:], dims, want)
+        print(f'    graph CG ms per iteration ({card}): '
+              + ', '.join(f'{k} {v:.3f} ({"NCCL" if "nccl" in k else "gloo, staged through the host"})'
+                          for k, v in ms.items()))
+    finally:
+        for w in worlds.values():
+            w.close()
+    done(t0)
+
+
 def large_n_phases(dev, kind, card, counters):
     """Phases 10-12: both ICAR samplers' matrix-free eta regimes on the
     10,000-site lattice of bench.py configs 5 and 5g. Returns K1's
@@ -334,7 +628,7 @@ def large_n_phases(dev, kind, card, counters):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--stop-after', type=int, default=13)
+    ap.add_argument('--stop-after', type=int, default=15)
     args = ap.parse_args()
 
     import torch
@@ -752,8 +1046,15 @@ def main():
     if args.stop_after < 10:
         return
     large_launches = large_n_phases(dev, kind, card, counters)
+    if args.stop_after < 13:
+        return
+    par_pg, par_cg = parallel_phase(dev, kind, card, counters, (Q, W, X, y),
+                                    post_alt, alt_sec)
+    if args.stop_after < 14:
+        return
+    sharded_phase(dev, card)
 
-    t0 = phase('13 report')
+    t0 = phase('15 report')
     # no single PyTorch call computes either function (a fixed-round
     # rejection sampler; a fixed-iteration PCG), so library_ms is null
     common = {'route': 'cuda', 'library_ms': None}
@@ -765,6 +1066,7 @@ def main():
         launches=pg_launches, launches_logit_rsr=rsr_pg_launches,
         launches_logit_stencil=large_launches['stencil'],
         launches_logit_graph=large_launches['graph'],
+        launches_parallel=par_pg,
         max_abs_err=pg_err, mismatch_share=mismatch,
         ms=pg_ms, plain_ms=pg_plain_ms, bound_ms=pg_bound,
         bound_by='operations' if pg_ops / PEAK_F32 > pg_bytes / PEAK_BYTES
@@ -774,7 +1076,8 @@ def main():
         common, name='icar_cg (K3 _cg_kernel)',
         source='occuspytial_tpu_torch/csrc/icar_cg.cu',
         replaces='occuspytial_tpu/ops/pallas_cg.py:56',
-        launches=cg_launches, max_abs_err=cg_err, ms=cg_ms,
+        launches=cg_launches, launches_parallel=par_cg, max_abs_err=cg_err,
+        ms=cg_ms,
         plain_ms=cg_plain_ms, bound_ms=cg_bound,
         bound_ms_is='3 TF32 operations per multiply-add at the tensor rate',
         bound_float32_ms=cg_bound_f32,

@@ -20,7 +20,6 @@ they execute once after sampling, not in the hot loop.
 
 import numpy as np
 from scipy.special import ndtri
-from scipy.stats import rankdata
 
 
 def _split_chains(x):
@@ -32,6 +31,10 @@ def _split_chains(x):
 
 def _z_scale(x):
     """Rank-normalize over all chains jointly: r -> ndtri((r-3/8)/(S+1/4))."""
+    # imported here: scipy.stats takes ~1.6 s to import, paid otherwise by
+    # every worker process that unpickles a sampler
+    from scipy.stats import rankdata
+
     shape = x.shape
     ranks = rankdata(x, method='average').reshape(shape)
     return ndtri((ranks - 3.0 / 8.0) / (x.size + 1.0 / 4.0))

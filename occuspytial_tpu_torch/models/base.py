@@ -16,6 +16,8 @@ of (chain key, step, update, lane). The carry holds the key words and the
 step counter, so resuming from it is bit for bit one longer run.
 """
 
+import copy
+import dataclasses
 import typing
 
 import numpy as np
@@ -41,6 +43,42 @@ class Carry(typing.NamedTuple):
     keys: torch.Tensor
     states: dict
     step: int
+
+
+def _moved(obj, device):
+    """``obj`` with every tensor it holds on ``device``: tensors, dicts,
+    lists, tuples (named ones too), dataclasses and plain objects of this
+    package are walked; containers and objects holding no tensor come
+    back as they are."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _moved(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        items = [_moved(v, device) for v in obj]
+        if hasattr(obj, '_fields'):
+            return type(obj)(*items)
+        return type(obj)(items)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        changed = {}
+        for f in dataclasses.fields(obj):
+            if f.init:
+                val = getattr(obj, f.name)
+                new = _moved(val, device)
+                if new is not val:
+                    changed[f.name] = new
+        return dataclasses.replace(obj, **changed) if changed else obj
+    if (
+        type(obj).__module__.split('.')[0] == __name__.split('.')[0]
+        and hasattr(obj, '__dict__')
+    ):
+        attrs = {k: _moved(v, device) for k, v in vars(obj).items()}
+        if all(attrs[k] is v for k, v in vars(obj).items()):
+            return obj
+        out = copy.copy(obj)
+        out.__dict__.update(attrs)
+        return out
+    return obj
 
 
 class GibbsBase:
@@ -99,6 +137,19 @@ class GibbsBase:
         self._pad_mask = torch.as_tensor(
             np.asarray(self.data.visit_mask), device=self.device
         )
+
+    def _moved(self, device):
+        """A shallow copy of this sampler with every tensor on ``device``
+        (the fixed arrays and eigenbasis, the visit index layouts, the
+        draw plan, the solver setup and any carry), for another process or
+        card; nothing is rebuilt. ``device`` goes through
+        :func:`.._device.resolve_device`, so a fresh process gets its TF32
+        flags."""
+        dev = resolve_device(device)
+        out = copy.copy(self)
+        out.__dict__.update(_moved(self.__dict__, dev))
+        out.device = dev
+        return out
 
     def _to_device(self, v):
         arr = np.asarray(v)

@@ -445,3 +445,59 @@ def test_large_n_probit_runs_and_is_reproducible(dev, regime):
     _run_twice(lambda: ProbitICARGibbs(q_in, W, X, y, random_state=4, **kw),
                10, 8)
     assert (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches) == before
+
+
+def test_sample_parallel_two_workers_on_one_card(dev):
+    """Two worker processes on one card against one process: the same
+    chains, the parent's cold-start check plus each worker's launches."""
+    from occuspytial_tpu_torch.parallel import sample_parallel
+
+    Q, W, X, y, *_ = make_data(n=150, ns=100, p=3, q=2, random_state=10)
+    s = LogitICARGibbs(Q, W, X, y, random_state=4, solver='cg',
+                       cg_impl='pallas', cg_iters=15)
+    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    post = sample_parallel(s, size=6, chains=8, mesh=['cuda:0'] * 2)
+    assert pg_devroye_cuda.launches == before[0] + 1 + 2 * 6
+    assert icar_cg_solve_cuda.launches == before[1] + 1 + 2 * 3 * 6
+    assert s.final_carry.keys.device.type == 'cuda'
+    local = s.sample(6, chains=8, progressbar=False)
+    for name in ('alpha', 'beta', 'tau'):
+        np.testing.assert_allclose(post[name], local[name], rtol=2e-4,
+                                   atol=1e-5)
+
+
+def test_halo_exchange_on_cuda_tensors_under_gloo(dev):
+    """gloo all-reduces CUDA tensors: four ranks on one card give the
+    single-device lattice and banded graph matvecs bit for bit."""
+    import scipy.sparse as sps
+
+    from occuspytial_tpu_torch.ops import graph, stencil
+    from occuspytial_tpu_torch.parallel import sharded_graph as sg
+    from occuspytial_tpu_torch.parallel import sharded_stencil as ss
+    from occuspytial_tpu_torch.parallel._spmd import World
+
+    spec = stencil.LatticeSpec(16, 20, 8)
+    deg = stencil.degree_grid(spec).astype(np.float32)
+    v = np.random.default_rng(0).standard_normal((3, 16, 20)).astype(
+        np.float32)
+    single = stencil.matvec(
+        spec, {'lat_deg': torch.as_tensor(deg, device=dev)},
+        torch.as_tensor(v.reshape(3, -1), device=dev)).cpu().numpy()
+    gspec, arrs = graph.build(
+        sps.csr_matrix(lattice_precision(32, 16, 8)), deflate=0, block=128)
+    assert gspec.n_pad // gspec.block == 4
+    panels = (arrs['gr_bd_diag'], arrs['gr_bd_sub'], arrs['gr_bd_sup'])
+    u = np.random.default_rng(1).standard_normal((2, gspec.n_pad)).astype(
+        np.float32)
+    fixed = {k: torch.as_tensor(a, device=dev) for k, a in arrs.items()}
+    gsingle = graph.banded_matvec(gspec, fixed,
+                                  torch.as_tensor(u, device=dev)).cpu().numpy()
+    with World(4, ['cuda:0'] * 4) as w:
+        got = w.run(ss.matvec_sharded, (spec, deg, v), (None, 0, -2),
+                    out_dim=-2)
+        gmv = w.run(sg.banded_matvec_sharded,
+                    panels + (u.reshape(2, 4, gspec.block),), (0, 0, 0, -2),
+                    out_dim=-2)
+    assert np.array_equal(got.reshape(3, -1), single)
+    np.testing.assert_allclose(gmv.reshape(2, -1), gsingle, rtol=1e-6,
+                               atol=1e-6 * np.abs(gsingle).max())
