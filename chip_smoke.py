@@ -11,9 +11,11 @@ the two probit samplers on the 10 x 10 lattice (1024 and 512 chains),
 and both ICAR samplers' matrix-free eta regimes on the 10,000-site
 lattice (``solver='stencil'`` and ``'graph'``, 32 and 64 chains), then
 ``parallel.sample_parallel`` (the headline problem's chains over worker
-processes) and the site-sharded lattice and graph solves over
+processes), the site-sharded lattice and graph solves over
 ``torch.distributed`` worlds (gloo ranks on one card, NCCL one rank per
-card), and prints one JSON line of per-kernel numbers and, last,
+card) and ``parallel.sample_parallel_2d`` (both ICAR samplers' lattice
+regime over a chains x sites mesh of ranks), and prints one JSON line of
+per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits non-zero
 without that line; it also fails without CUDA. ``--stop-after N`` ends
 after phase N (a quick build-and-check run).
@@ -62,6 +64,9 @@ STENCIL_ITERS, GRAPH_ITERS = 200, 24
 # and cut short, where the preconditioner and the sums decide the iterate
 SHORT_ITERS = 3
 GRAPH_BLOCK, GRAPH_RANK = 256, 512
+# phase 15: sample_parallel_2d on config 5 (phase 10's data and seed, 32
+# chains), 4 site ranks (25-row bands)
+TWO_D_STEPS, TWO_D_SITES = 6, 4
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
 #: op/s, dense TF32 tensor-core op/s
@@ -506,6 +511,143 @@ def sharded_phase(dev, card):
     done(t0)
 
 
+def two_d_phase(dev, card, counters):
+    """Phase 15: ``sample_parallel_2d`` at config 5's full width (the
+    100 x 100 lattice, 32 chains, phase 10's seed) against the same runs
+    in one process. Returns K1's launches in (a)."""
+    import torch
+
+    from occuspytial_tpu_torch import LogitICARGibbs, ProbitICARGibbs
+    from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
+
+    t0 = phase(f'15 sample_parallel_2d: config 5 (100 x 100 lattice, '
+               f'{LARGE_CHAINS["stencil"]} chains), chains x sites meshes')
+    data = make_lattice_dataset(
+        LARGE['rows'], LARGE['cols'], ns=LARGE['ns'], seed=LARGE['seed'],
+        min_v=LARGE['min_v'], max_v=LARGE['max_v'])[:4]
+    chains = LARGE_CHAINS['stencil']
+    n_cards = torch.cuda.device_count()
+
+    def make(cls):
+        return cls(*data, random_state=LARGE['seed'], device=dev,
+                   lattice=(LARGE['rows'], LARGE['cols'], 8))
+
+    def run(cls, mesh, timed=False):
+        s = make(cls)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        post = sample_parallel_2d(s, TWO_D_STEPS, mesh, chains=chains,
+                                  timed=timed)
+        launches = [c.launches for c in counters]
+        check_posterior(post, chains, TWO_D_STEPS,
+                        {'alpha': 3, 'beta': 3, 'tau': 0})
+        check_state(s.final_carry)
+        drift = plane_drift(s.final_carry.states['eta'])
+        check(drift < 1e-4, f'2-D eta off the hyperplane: {drift:.2e}')
+        # steady ms a step: the slowest rank's mean over the steps after
+        # the first two, which pay the rank's cold start (cuBLAS handles,
+        # communicators, first kernel loads)
+        ms = 1e3 * max(float(np.mean(t[2:])) for t in s.rank_step_seconds)
+        cold = 1e3 * max(float(t[0]) for t in s.rank_step_seconds)
+        return s, post, launches, (ms, cold), drift
+
+    def close(post, want, names, label):
+        worst = 0.0
+        for name in names:
+            np.testing.assert_allclose(
+                post[name], want[name], rtol=2e-3,
+                atol=0.0 if name == 'tau' else 2e-4, err_msg=label)
+            worst = max(worst, float(np.abs(post[name] - want[name]).max()))
+        return worst
+
+    ref, ref_ms, ref_carry = {}, {}, {}
+    for cls in (LogitICARGibbs, ProbitICARGibbs):
+        s = make(cls)
+        s.init_carry(1)  # the cold-start check, outside the timing
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        ref[cls] = s.sample(TWO_D_STEPS, chains=chains, progressbar=False)
+        torch.cuda.synchronize()
+        ref_ms[cls] = 1e3 * (time.perf_counter() - ts) / TWO_D_STEPS
+        ref_carry[cls] = s.final_carry
+    gloo = mesh_2d(1, TWO_D_SITES, ['cuda:0'] * TWO_D_SITES)
+    check(gloo.backend == 'gloo', 'a mesh of ranks on one card is gloo')
+
+    # (a) logit, 1 x 4, gloo, four ranks on cuda:0
+    s, post_a, (pg_a, cg_a), ms_a, drift = run(LogitICARGibbs, gloo)
+    want = TWO_D_SITES * TWO_D_STEPS + 1
+    check(pg_a == want, f'2-D K1 launches {pg_a} != {want}')
+    check(cg_a == 0, 'the 2-D lattice path launched the K3 CG')
+    diff = close(post_a, ref[LogitICARGibbs], ('alpha', 'beta', 'tau'),
+                 '(a) against one process')
+    print(f'    (a) logit, {gloo.shape}, gloo, 4 ranks on cuda:0: K1 '
+          f'{pg_a} launches ({TWO_D_SITES} ranks x {TWO_D_STEPS} steps + '
+          f'the cold-start check), every site rank of the row holds the '
+          f'same alpha, beta and tau, |sum eta| / sum |eta| {drift:.2e}, '
+          f'max |diff| against one process {diff:.3e} (rtol 2e-3, atol '
+          f'2e-4)')
+    # (b) one rank: the band is the field
+    one = mesh_2d(1, 1, ['cuda:0'], backend='gloo')
+    s_b, post_b, _, ms_b, _ = run(LogitICARGibbs, one)
+    same = all(np.array_equal(post_b[k], ref[LogitICARGibbs][k])
+               for k in ('alpha', 'beta', 'tau'))
+    same = same and all(
+        torch.equal(s_b.final_carry.states[k], v)
+        for k, v in ref_carry[LogitICARGibbs].states.items())
+    print(f'    (b) logit, 1 x 1, gloo: draws and final carry '
+          f'{"bit-identical" if same else "differ"} to one process')
+    check(same, 'a 1 x 1 mesh differs from one process')
+    # (c) NCCL, one rank a card
+    nccl = mesh_2d(1, n_cards)
+    check(nccl.backend == 'nccl', f'mesh over the cards: {nccl}')
+    _, post_c, (pg_c, _), ms_c, _ = run(LogitICARGibbs, nccl)
+    check(pg_c == n_cards * TWO_D_STEPS + 1, f'NCCL K1 launches {pg_c}')
+    diff_c = close(post_c, post_a, ('alpha', 'beta', 'tau'), '(c) vs (a)')
+    diff_cl = close(post_c, ref[LogitICARGibbs], ('alpha', 'beta', 'tau'),
+                    '(c) vs one process')
+    print(f'    (c) logit, {nccl.shape}, NCCL over {n_cards} card(s): max '
+          f'|diff| against (a) {diff_c:.3e}, against one process '
+          f'{diff_cl:.3e}')
+    # (d) probit
+    _, post_d, (pg_d, _), ms_d, drift = run(ProbitICARGibbs, gloo)
+    check(pg_d == 0, 'the probit path launched the PG kernel')
+    diff_d = close(post_d, ref[ProbitICARGibbs], ('beta', 'tau'),
+                   '(d) against one process')
+    print(f'    (d) probit, {gloo.shape}, gloo: max |diff| of beta and tau '
+          f'against one process {diff_d:.3e}, |sum eta| / sum |eta| '
+          f'{drift:.2e}')
+    # (e) ms a step (the ranks' sampling seconds, start-up excluded), and
+    # the DCT all-reduce's share in runs that synchronise around every
+    # all-reduce
+    shares = {}
+    for label, mesh in (('gloo', gloo), ('NCCL', nccl)):
+        st, _, _, (ms, _), _ = run(LogitICARGibbs, mesh, timed=True)
+        dct = max(c['dct'][0] / float(np.sum(t[2:])) for c, t in
+                  zip(st.rank_collectives, st.rank_step_seconds))
+        coll = max(sum(v[0] for v in c.values()) / float(np.sum(t[2:]))
+                   for c, t in zip(st.rank_collectives,
+                                   st.rank_step_seconds))
+        shares[label] = (dct, st.rank_collectives[0]['dct'][1], coll, ms)
+    print(f'    (e) ms a step ({card}), steady (steps 3-{TWO_D_STEPS}, the '
+          f'slowest rank) and [first step]: one process logit '
+          f'{ref_ms[LogitICARGibbs]:.3f}, probit '
+          f'{ref_ms[ProbitICARGibbs]:.3f}; (a) gloo x{TWO_D_SITES} '
+          f'{ms_a[0]:.3f} [{ms_a[1]:.1f}], (b) gloo x1 {ms_b[0]:.3f} '
+          f'[{ms_b[1]:.1f}], (c) NCCL x{n_cards} {ms_c[0]:.3f} '
+          f'[{ms_c[1]:.1f}], (d) probit gloo x{TWO_D_SITES} {ms_d[0]:.3f} '
+          f'[{ms_d[1]:.1f}]')
+    for label, (dct, calls, coll, ms) in shares.items():
+        how = (' (stages through the host)' if label == 'gloo'
+               else '')
+        print(f'    (e) {label}{how}, steps 3-{TWO_D_STEPS} of a run '
+              f'synchronised around each all-reduce ({ms:.3f} ms a step): '
+              f'DCT all-reduce {dct:.3f} of the step ({calls} applies), '
+              f'all all-reduces {coll:.3f}')
+    done(t0)
+    return pg_a
+
+
 def large_n_phases(dev, kind, card, counters):
     """Phases 10-12: both ICAR samplers' matrix-free eta regimes on the
     10,000-site lattice of bench.py configs 5 and 5g. Returns K1's
@@ -628,7 +770,7 @@ def large_n_phases(dev, kind, card, counters):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--stop-after', type=int, default=15)
+    ap.add_argument('--stop-after', type=int, default=16)
     args = ap.parse_args()
 
     import torch
@@ -724,6 +866,26 @@ def main():
         check(torch.equal(s._pg(sub, z), out_k), f'{method} differs')
         check(pg_devroye_cuda.launches == before + 1, f'{method} no launch')
     s.pg_method = 'pallas_packed'
+    # a lane table (the 2-D sampler's): column j draws as global lane
+    # lanes[j], so a band's lanes drawn alone are the full-width draw at
+    # those lanes, in the kernel and in the plain sampler
+    gen3 = torch.Generator(device=dev).manual_seed(3)
+    lanes = torch.randperm(z.shape[1], device=dev, generator=gen3)[
+        :z.shape[1] // TWO_D_SITES]
+    z_band = z[:, lanes].contiguous()
+    out_t = pg_devroye_cuda(sub, z_band, lanes)
+    out_tp = pgm.pg_devroye(sub, z_band, lanes)
+    torch.cuda.synchronize()
+    check(torch.equal(out_t, out_k[:, lanes]),
+          'lane table: the kernel differs from the full-width draw')
+    rel_t = ((out_t - out_tp).abs() / out_tp.abs()).cpu().numpy()
+    mismatch_t = float((rel_t > 1e-5).mean())
+    check(mismatch_t <= 1e-3, f'lane table: kernel against the plain '
+                              f'sampler mismatch share {mismatch_t}')
+    print(f'    lane table ({lanes.numel()} random lanes of {z.shape[1]}): '
+          f'bit-identical to the full-width draw at those lanes; against '
+          f'the plain sampler with the same table mismatch share '
+          f'{mismatch_t:.3e}')
     # the kernel computes its inputs itself, so the draw is one launch and
     # the kernel's time without them is no longer separable: `ms` is the
     # whole draw
@@ -1053,8 +1215,11 @@ def main():
     if args.stop_after < 14:
         return
     sharded_phase(dev, card)
+    if args.stop_after < 15:
+        return
+    two_d_pg = two_d_phase(dev, card, counters)
 
-    t0 = phase('15 report')
+    t0 = phase('16 report')
     # no single PyTorch call computes either function (a fixed-round
     # rejection sampler; a fixed-iteration PCG), so library_ms is null
     common = {'route': 'cuda', 'library_ms': None}
@@ -1066,7 +1231,7 @@ def main():
         launches=pg_launches, launches_logit_rsr=rsr_pg_launches,
         launches_logit_stencil=large_launches['stencil'],
         launches_logit_graph=large_launches['graph'],
-        launches_parallel=par_pg,
+        launches_parallel=par_pg, launches_2d=two_d_pg,
         max_abs_err=pg_err, mismatch_share=mismatch,
         ms=pg_ms, plain_ms=pg_plain_ms, bound_ms=pg_bound,
         bound_by='operations' if pg_ops / PEAK_F32 > pg_bytes / PEAK_BYTES

@@ -7,7 +7,8 @@
 // the TPU a block of lanes runs its rounds in lockstep and reseeds its core
 // generator per (chain, round); here round k of lane l of chain b draws its
 // 9 uniforms from Threefry-2x32 on (the chain's subkey, counter
-// (k, 5 l + j)), j < 5. That counter-based stream gives both TPU contracts
+// (k, 5 l + j)), j < 5, where l is the column of z or, given a lane
+// table, its entry for that column. That counter-based stream gives both TPU contracts
 // at once: a chain's draws depend on its own key alone, and a lane's value
 // is its first accepted proposal whatever the other lanes do. The bits are
 // those of occuspytial_tpu_torch/rng.py, so the plain torch sampler
@@ -145,10 +146,13 @@ struct Lane {
 
     __device__ __forceinline__ void start(const long long* subkeys,
                                           long long key_stride,
+                                          const long long* lanes,
                                           long long idx, int m, float c_in,
                                           float ratio_in) {
         const long long chain = idx / m;
-        lane = (uint32_t)(idx - chain * m);
+        const long long col = idx - chain * m;
+        // column j draws as lane j, or as global lane lanes[j]
+        lane = lanes ? (uint32_t)lanes[col] : (uint32_t)col;
         // the key words are uint32 values held in int64
         k0 = (uint32_t)subkeys[key_stride * chain];
         k1 = (uint32_t)subkeys[key_stride * chain + 1];
@@ -233,7 +237,8 @@ struct Lane {
 
 __global__ void __launch_bounds__(kThreads)
 pg_devroye_kernel(const long long* __restrict__ subkeys,
-                  long long key_stride, const float* __restrict__ z,
+                  long long key_stride, const long long* __restrict__ lanes,
+                  const float* __restrict__ z,
                   float* __restrict__ out, int chains, int m) {
     __shared__ float s_c[kWarps][kChunk];
     __shared__ float s_ratio[kWarps][kChunk];
@@ -257,8 +262,8 @@ pg_devroye_kernel(const long long* __restrict__ subkeys,
     int item = lane < count ? lane : -1;
     Lane st;
     if (item >= 0)
-        st.start(subkeys, key_stride, base + item, m, s_c[warp][item],
-                 s_ratio[warp][item]);
+        st.start(subkeys, key_stride, lanes, base + item, m,
+                 s_c[warp][item], s_ratio[warp][item]);
     while (__any_sync(full, item >= 0)) {
         bool finished = false;
         if (item >= 0) {
@@ -269,7 +274,7 @@ pg_devroye_kernel(const long long* __restrict__ subkeys,
         if (finished) {
             item = next + __popc(need & ((1u << lane) - 1u));
             if (item < count)
-                st.start(subkeys, key_stride, base + item, m,
+                st.start(subkeys, key_stride, lanes, base + item, m,
                          s_c[warp][item], s_ratio[warp][item]);
             else
                 item = -1;
@@ -281,19 +286,22 @@ pg_devroye_kernel(const long long* __restrict__ subkeys,
 }  // namespace
 
 // `subkeys` (chains, 2) int64 key words, chain b's pair at
-// subkeys[b * key_stride]; `z` and `out` (chains, m) contiguous float32;
-// all device pointers. Returns a CUDA error code (0 on success).
+// subkeys[b * key_stride]; `lanes` null, or (m,) int64 global lane
+// indices (column j of z draws lane lanes[j]'s uniforms: a band of sites
+// draws what the whole field gives those lanes); `z` and `out` (chains,
+// m) contiguous float32; all device pointers. Returns a CUDA error code
+// (0 on success).
 extern "C" int pg_devroye_launch(const void* subkeys, long long key_stride,
-                                 const void* z, void* out, int chains, int m,
-                                 void* stream) {
+                                 const void* lanes, const void* z, void* out,
+                                 int chains, int m, void* stream) {
     const long long total = (long long)chains * m;
     if (total == 0) return 0;
     const long long per_block = (long long)kWarps * kChunk;
     const long long blocks = (total + per_block - 1) / per_block;
     pg_devroye_kernel<<<(unsigned)blocks, kThreads, 0,
                         (cudaStream_t)stream>>>(
-        (const long long*)subkeys, key_stride, (const float*)z, (float*)out,
-        chains, m);
+        (const long long*)subkeys, key_stride, (const long long*)lanes,
+        (const float*)z, (float*)out, chains, m);
     return (int)cudaGetLastError();
 }
 

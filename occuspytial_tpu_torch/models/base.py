@@ -27,6 +27,7 @@ from .. import rng
 from .._device import resolve_device, resolve_dtype
 from ..data import as_occupancy_data
 from ..ops import icar
+from ..ops.sites import LOCAL
 from ..posterior import PosteriorParameter
 from . import etasetup
 
@@ -101,6 +102,16 @@ class GibbsBase:
     #: (chains, draws, n)-sized.
     track = ()
 
+    #: every sum or contraction over the sites goes through this hook
+    #: (:mod:`..ops.sites`): the torch op itself here; a band of a 2-D
+    #: (chains x sites) run sums over its ranks
+    _sites = LOCAL
+    #: a band of a 2-D run: its lattice operators
+    #: (:class:`..parallel.sharded_stencil.BandOps`) and the global lane
+    #: of each column of its Pólya-Gamma draw; None for the whole field
+    _band_ops = None
+    _pg_lanes = None
+
     def __init__(
         self, Q, W, X, y, hparams=None, random_state=None,
         dtype=torch.float32, device=None,
@@ -110,6 +121,9 @@ class GibbsBase:
         np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
         x_np = np.asarray(X, dtype=np.float64)
         self.n = x_np.shape[0]
+        # sites of the whole field: a band of a 2-D run keeps it while its
+        # ``n`` counts the band's sites
+        self._field_n = self.n
         self.n_beta = x_np.shape[1]
         self.data = as_occupancy_data(W, y, self.n, dtype=np_dtype)
         self.n_alpha = self.data.n_alpha
@@ -167,7 +181,10 @@ class GibbsBase:
     @property
     def _ops(self):
         """The op module of the ICAR samplers' matrix-free eta regime
-        (``ops.stencil`` or ``ops.graph``), else None."""
+        (``ops.stencil`` or ``ops.graph``), a band's operators in a 2-D
+        run, else None."""
+        if self._band_ops is not None:
+            return self._band_ops
         return etasetup.OPS.get(getattr(self, 'solver', None))
 
     @property

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from .. import rng
 from .._device import resolve_dtype
-from ..ops import icar
+from ..ops import icar, stencil
 from ..ops.cg import icar_cg_solve_spectral
 from ..ops.cuda_cg import icar_cg_solve_cuda
 from ..ops.cuda_pg import pg_devroye_cuda
@@ -36,6 +36,7 @@ from ..ops.mvnorm import (
     sum_to_zero,
 )
 from ..ops.polyagamma import pg_devroye, pg_gamma
+from ..ops.sites import lincomb
 from . import etasetup
 from .base import INIT_ETA_BASIS, GibbsBase
 from .interweave import ancillary_tau_move, noise_from_words, noise_words
@@ -220,8 +221,8 @@ class LogitICARGibbs(GibbsBase):
         if self.pg_method == 'gamma':
             return pg_gamma(subkeys, z)
         if self.pg_method in ('pallas', 'pallas_packed'):
-            return pg_devroye_cuda(subkeys, z)
-        return pg_devroye(subkeys, z)
+            return pg_devroye_cuda(subkeys, z, self._pg_lanes)
+        return pg_devroye(subkeys, z, self._pg_lanes)
 
     def _init_state(self, keys, fixed):
         state = self._init_common(keys, fixed)
@@ -292,7 +293,7 @@ class LogitICARGibbs(GibbsBase):
         state = {k: v[:1] for k, v in carry.states.items()}
         fixed = self.fixed
         x = fixed['X']
-        lin_b = state['beta'] @ x.T + state['spatial']
+        lin_b = lincomb(state['beta'], x.T) + state['spatial']
         subkeys = torch.zeros((1, 2), dtype=torch.int64, device=self.device)
         omega = self._pg(subkeys, lin_b)
         tau = state['tau']
@@ -346,13 +347,30 @@ class LogitICARGibbs(GibbsBase):
                 f'pass solver_check_tol=None to bypass this check).'
             )
 
+    def _band_tables(self, band):
+        """:class:`..rng.DrawPlan` word tables of a band of a 2-D run
+        (:class:`..parallel.sharded_stencil.Band`): the field's draws at
+        the band's sites and at the edges that touch its rows, so the band
+        draws the words the whole field gives them; the per-chain draws
+        stay whole."""
+        sites = torch.arange(band.site0, band.site1)
+        edges = torch.as_tensor(
+            stencil.noise_index(self.lattice, band.row0, band.row1)
+        )
+        tables = {self._z_update: sites}
+        for i in range(self.spatial_sweeps):
+            base = 1 + _SWEEP_UPDATES * i
+            tables[base + _EPS1] = rng.normal_words(sites)
+            tables[base + _NOISE] = rng.normal_words(edges)
+        return tables
+
     # -------------------------- update segments ----------------------- #
 
     def _eta_quad(self, eta, fixed):
         """eta' Q eta per chain."""
         if self._ops is not None:
             return self._ops.quad_form(self._spec, fixed, eta)
-        return torch.sum(eta * (eta @ fixed['Q']), dim=-1)
+        return self._sites.sum(eta * (eta @ fixed['Q']), dim=-1)
 
     def _update_tau(self, eta, fixed, g):
         """tau ~ Gamma(shape, 0.5 eta'Q eta + rate) given ``g`` ~
@@ -394,29 +412,30 @@ class LogitICARGibbs(GibbsBase):
         )
         self._track_resid(state, rel)
         g, gk, h, gp = sol[:, :p], sol[:, p], sol[:, p + 1], sol[:, p + 2]
-        hsum = torch.sum(h, dim=-1, keepdim=True)
-        ca = g - (torch.sum(g, dim=-1, keepdim=True) / hsum[:, None]) * \
+        sites = self._sites
+        hsum = sites.sum(h, dim=-1, keepdim=True)
+        ca = g - (sites.sum(g, dim=-1, keepdim=True) / hsum[:, None]) * \
             h[:, None, :]
-        ck = gk - (torch.sum(gk, dim=-1, keepdim=True) / hsum) * h
+        ck = gk - (sites.sum(gk, dim=-1, keepdim=True) / hsum) * h
         s_mat = (
-            (x.T * omega_b[:, None, :]) @ x
+            sites.contract(x.T * omega_b[:, None, :], x)
             + fixed['b_prec']
-            - a_t @ ca.transpose(-1, -2)
+            - sites.contract(a_t, ca.transpose(-1, -2))
         )
         s_mat = 0.5 * (s_mat + s_mat.transpose(-1, -2))
         l_vec = (
-            k_vec @ x + fixed['b_prec_by_mu']
-            - (a_t @ ck[:, :, None])[..., 0]
+            sites.contract(k_vec, x) + fixed['b_prec_by_mu']
+            - sites.contract(a_t, ck[:, :, None])[..., 0]
         )
         beta = precision_mvnorm(l_vec, s_mat, eps_beta)
-        eta = sum_to_zero(gk - (beta[:, None, :] @ g)[:, 0] + gp, h)
+        eta = sum_to_zero(gk - lincomb(beta, g) + gp, h, sites)
         if 'eta_warm' in state:
             state['eta_warm'] = warm_next
         return beta, eta
 
     @property
     def _eta_scale_dim(self):
-        return self.n - 1
+        return self._field_n - 1
 
     def _asis_tau(self, s, omega_b, fixed, noise):
         """Sufficient/ancillary tau interweave (Yu & Meng 2011): a move on
@@ -424,9 +443,10 @@ class LogitICARGibbs(GibbsBase):
         spatial rescaled (see the JAX ``_asis_tau``). ``noise`` is the
         move's noise (:func:`.interweave.noise_from_words`)."""
         spatial_a = torch.sqrt(s['tau'])[:, None] * s['spatial']
-        xb = s['beta'] @ fixed['X'].T
-        a_lin = torch.sum((s['k'] - omega_b * xb) * spatial_a, dim=-1)
-        c_quad = 0.5 * torch.sum(omega_b * spatial_a * spatial_a, dim=-1)
+        xb = lincomb(s['beta'], fixed['X'].T)
+        a_lin = self._sites.sum((s['k'] - omega_b * xb) * spatial_a, dim=-1)
+        c_quad = 0.5 * self._sites.sum(omega_b * spatial_a * spatial_a,
+                                       dim=-1)
         return ancillary_tau_move(
             s, spatial_a, a_lin, c_quad,
             fixed['tau_shape'] - 0.5 * self._eta_scale_dim,
@@ -438,7 +458,7 @@ class LogitICARGibbs(GibbsBase):
         """Constrained ICAR draw (reference gibbs/logit.py:211-217),
         unblocked path: solve Lambda [x, z] = [y, 1] with y ~ N(b,
         Lambda) and kriging-project."""
-        xb = state['beta'] @ fixed['X'].T
+        xb = lincomb(state['beta'], fixed['X'].T)
         b = state['k'] - omega_b * xb
         y = b + torch.sqrt(omega_b) * eps1 + self._lambda_noise(
             eps_noise, tau, fixed
@@ -453,14 +473,16 @@ class LogitICARGibbs(GibbsBase):
         if 'eta_warm' in state:
             state['eta_warm'] = warm_next
         self._track_resid(state, rel)
-        eta = sum_to_zero(sol[:, 0], sol[:, 1])
+        eta = sum_to_zero(sol[:, 0], sol[:, 1], self._sites)
         return eta, eta
 
     def _update_beta(self, state, omega_b, spatial, fixed, eps):
         """beta ~ precision MVN (reference gibbs/logit.py:226-232)."""
         x = fixed['X']
-        a = (x.T * omega_b[:, None, :]) @ x + fixed['b_prec']
-        b = (state['k'] - omega_b * spatial) @ x + fixed['b_prec_by_mu']
+        a = self._sites.contract(x.T * omega_b[:, None, :], x) \
+            + fixed['b_prec']
+        b = self._sites.contract(state['k'] - omega_b * spatial, x) \
+            + fixed['b_prec_by_mu']
         return precision_mvnorm(b, a, eps)
 
     def _update_alpha(self, state, omega_a, fixed, eps):
@@ -469,8 +491,11 @@ class LogitICARGibbs(GibbsBase):
         219-224); ``eps`` (chains, n_alpha) standard normals."""
         w = fixed['W_flat']
         wt = state['z'][:, self._visit_site]
-        a = w.T @ ((wt * omega_a)[..., None] * w) + fixed['a_prec']
-        b = (wt * (fixed['y_flat'] - 0.5)) @ w + fixed['a_prec_by_mu']
+        # sums over the visits of the sites (a band's visits in a 2-D run)
+        a = self._sites.contract(w.T, (wt * omega_a)[..., None] * w) \
+            + fixed['a_prec']
+        b = self._sites.contract(wt * (fixed['y_flat'] - 0.5), w) \
+            + fixed['a_prec_by_mu']
         return precision_mvnorm(b, a, eps)
 
     def _update_z(self, state, alpha, beta, spatial, fixed, u):
@@ -478,8 +503,10 @@ class LogitICARGibbs(GibbsBase):
         uniforms ``u`` (chains, n): z = 1 where detected, else
         Bernoulli(sigmoid(logit psi + sum_v log(1 - d_v))), the sum over
         visits in a fixed order (:meth:`~.base.GibbsBase._site_sum`)."""
-        logit_psi = beta @ fixed['X'].T + spatial
-        log_prod = self._site_sum(-F.softplus(alpha @ fixed['W_flat'].T))
+        logit_psi = lincomb(beta, fixed['X'].T) + spatial
+        log_prod = self._site_sum(
+            -F.softplus(lincomb(alpha, fixed['W_flat'].T))
+        )
         p = torch.sigmoid(logit_psi + log_prod)
         draw = (u < p).to(self.dtype)
         z = torch.where(
@@ -497,8 +524,8 @@ class LogitICARGibbs(GibbsBase):
         w = self._plan(keys, step)
         dt = self.dtype
         s = dict(state)
-        lin_b = s['beta'] @ fixed['X'].T + s['spatial']
-        lin_a = s['alpha'] @ fixed['W_flat'].T
+        lin_b = lincomb(s['beta'], fixed['X'].T) + s['spatial']
+        lin_a = lincomb(s['alpha'], fixed['W_flat'].T)
         omega = self._pg(w[0], torch.cat([lin_b, lin_a], dim=-1))
         omega_b, omega_a = omega[:, :self.n], omega[:, self.n:]
 
@@ -613,7 +640,7 @@ class LogitRSRGibbs(LogitICARGibbs):
     def _update_eta(self, state, omega_b, tau, fixed, eps1, eps2):
         """Reduced-basis eta draw (reference gibbs/logit.py:478-485);
         ``eps1`` (chains, n) and ``eps2`` (chains, q) standard normals."""
-        xb = state['beta'] @ fixed['X'].T
+        xb = lincomb(state['beta'], fixed['X'].T)
         b = (state['k'] - omega_b * xb) @ fixed['K']
         eta = rsr_mvnorm(
             b, omega_b, tau, fixed['Q_rsr'], fixed['K'],

@@ -30,12 +30,13 @@ import torch
 from torch.special import log_ndtr
 
 from .. import rng
-from ..ops import icar
+from ..ops import icar, stencil
 from ..ops.mvnorm import (
     cholesky_solve,
     constrained_icar_mvnorm_unit,
     precision_mvnorm,
 )
+from ..ops.sites import lincomb
 from ..ops.truncnorm import truncnorm_sign
 from . import etasetup
 from .base import INIT_EPS, INIT_ETA_BASIS, GibbsBase
@@ -140,8 +141,8 @@ class _ProbitBase(GibbsBase):
     def _px_dim(self, marginal):
         """Jacobian dimension of the orbit: dim(u) + dim(beta) +
         dim_eff(eta), plus dim(eps) unless eps is integrated out."""
-        d = self.n + self.n_beta + self._eta_dim
-        return d if marginal else d + self.n
+        d = self._field_n + self.n_beta + self._eta_dim
+        return d if marginal else d + self._field_n
 
     def _px_noise(self, w, marginal):
         """The PX move's noise from its words: a Gamma(d/2, 1) draw per
@@ -164,14 +165,15 @@ class _ProbitBase(GibbsBase):
         beta, eta, eps = s['beta'], s['eta'], s['eps']
         u = s['omega_b']
         b_prec = fixed['b_prec']
-        xb = beta @ fixed['X'].T
+        xb = lincomb(beta, fixed['X'].T)
         quad = s['tau'] * self._eta_quad(eta, fixed)
+        sites = self._sites
         if marginal:
             r = u - xb - s['spatial']
-            rss = 0.5 * torch.sum(r * r, dim=-1) + quad
+            rss = 0.5 * sites.sum(r * r, dim=-1) + quad
         else:
             r = u - xb - s['spatial'] - eps
-            rss = torch.sum(r * r, dim=-1) + torch.sum(eps * eps, dim=-1) \
+            rss = sites.sum(r * r, dim=-1) + sites.sum(eps * eps, dim=-1) \
                 + quad
         d = self._px_dim(marginal)
         if self._px_exact:
@@ -204,9 +206,9 @@ class _ProbitBase(GibbsBase):
         u ~ N(X beta + spatial + eps, 1): A = (u - X beta - eps)'
         spatial_a, C = 0.5 ||spatial_a||^2 (the JAX ``_asis_tau``)."""
         spatial_a = torch.sqrt(s['tau'])[:, None] * s['spatial']
-        d = s['omega_b'] - s['beta'] @ fixed['X'].T - s['eps']
-        a_lin = torch.sum(d * spatial_a, dim=-1)
-        c_quad = 0.5 * torch.sum(spatial_a * spatial_a, dim=-1)
+        d = s['omega_b'] - lincomb(s['beta'], fixed['X'].T) - s['eps']
+        a_lin = self._sites.sum(d * spatial_a, dim=-1)
+        c_quad = 0.5 * self._sites.sum(spatial_a * spatial_a, dim=-1)
         return ancillary_tau_move(
             s, spatial_a, a_lin, c_quad,
             fixed['tau_shape'] - 0.5 * self._eta_dim, fixed['tau_rate'],
@@ -219,7 +221,7 @@ class _ProbitBase(GibbsBase):
         """Site utilities truncated by z (reference gibbs/probit.py:
         196-209) given uniforms ``u`` (chains, n). Under the collapsed
         ladder eps is integrated out: u ~ N(X beta + spatial, 2)."""
-        loc = state['beta'] @ fixed['X'].T + state['spatial']
+        loc = lincomb(state['beta'], fixed['X'].T) + state['spatial']
         positive = state['z'] > 0.5
         if self.collapsed:
             root2 = math.sqrt(2.0)
@@ -230,22 +232,23 @@ class _ProbitBase(GibbsBase):
         """eps | rest ~ N(0.5 (omega_b - X beta - spatial), 1/2)
         (reference gibbs/probit.py:216-221); ``eps`` standard normals."""
         mean = 0.5 * (
-            omega_b - state['beta'] @ fixed['X'].T - state['spatial']
+            omega_b - lincomb(state['beta'], fixed['X'].T)
+            - state['spatial']
         )
         return mean + eps / math.sqrt(2.0)
 
     def _update_beta(self, state, omega_b, fixed, eps):
         """beta with precision X'X + b_prec (reference gibbs/probit.py:
         237-243)."""
-        b = fixed['b_prec_by_mu'] + (
-            omega_b - state['spatial'] - state['eps']
-        ) @ fixed['X']
+        b = fixed['b_prec_by_mu'] + self._sites.contract(
+            omega_b - state['spatial'] - state['eps'], fixed['X']
+        )
         return precision_mvnorm(b, fixed['XTX_plus_bprec'], eps)
 
     def _update_omega_a(self, state, fixed, u):
         """Visit utilities truncated by the detections (reference
         gibbs/probit.py:173-194), flat visit layout."""
-        loc = state['alpha'] @ fixed['W_flat'].T
+        loc = lincomb(state['alpha'], fixed['W_flat'].T)
         return truncnorm_sign(loc, fixed['y_flat'] > 0.5, u)
 
     def _update_alpha(self, state, omega_a, fixed, eps):
@@ -253,8 +256,9 @@ class _ProbitBase(GibbsBase):
         visits (reference gibbs/probit.py:231-235)."""
         w = fixed['W_flat']
         wt = state['z'][:, self._visit_site]
-        a = w.T @ (wt[..., None] * w) + fixed['a_prec']
-        b = fixed['a_prec_by_mu'] + (wt * omega_a) @ w
+        # sums over the visits of the sites (a band's visits in a 2-D run)
+        a = self._sites.contract(w.T, wt[..., None] * w) + fixed['a_prec']
+        b = fixed['a_prec_by_mu'] + self._sites.contract(wt * omega_a, w)
         return precision_mvnorm(b, a, eps)
 
     def _update_z(self, state, fixed, u):
@@ -262,10 +266,12 @@ class _ProbitBase(GibbsBase):
         ``sigmoid(log Phi(lin) + sum_v log Phi(-w_v alpha) - log
         Phi(-lin))``, the sum over visits in a fixed order."""
         lin = (
-            state['beta'] @ fixed['X'].T + state['spatial'] + state['eps']
+            lincomb(state['beta'], fixed['X'].T) + state['spatial']
+            + state['eps']
         )
-        log_prod = self._site_sum(log_ndtr(-(state['alpha']
-                                             @ fixed['W_flat'].T)))
+        log_prod = self._site_sum(
+            log_ndtr(-lincomb(state['alpha'], fixed['W_flat'].T))
+        )
         p = torch.sigmoid(log_ndtr(lin) + log_prod - log_ndtr(-lin))
         draw = (u < p).to(self.dtype)
         return torch.where(
@@ -412,7 +418,7 @@ class ProbitRSRGibbs(_ProbitBase):
         gibbs/probit.py:223-229)."""
         a = fixed['KTK'] + tau[:, None, None] * fixed['Q_rsr']
         b = (
-            omega_b - state['beta'] @ fixed['X'].T - state['eps']
+            omega_b - lincomb(state['beta'], fixed['X'].T) - state['eps']
         ) @ fixed['K']
         eta = precision_mvnorm(b, a, eps)
         return eta, eta @ fixed['K'].T
@@ -454,7 +460,7 @@ class ProbitRSRGibbs(_ProbitBase):
         if chol is None:
             chol = self._collapsed_factor(tau, fixed)
         b = 0.5 * (
-            (omega_b - state['beta'] @ fixed['X'].T) @ fixed['K']
+            (omega_b - lincomb(state['beta'], fixed['X'].T)) @ fixed['K']
         )
         eta = precision_mvnorm(b, None, eps, chol=chol)
         return eta, eta @ fixed['K'].T
@@ -540,7 +546,7 @@ class ProbitICARGibbs(_ProbitBase):
 
     @property
     def _eta_dim(self):
-        return self.n - 1  # eta lives on the sum-to-zero subspace
+        return self._field_n - 1  # eta lives on the sum-to-zero subspace
 
     @property
     def _eta_noise_dim(self):
@@ -551,11 +557,34 @@ class ProbitICARGibbs(_ProbitBase):
             return self.n
         return self.n + self._ops.noise_dim(self._spec)
 
+    def _band_tables(self, band):
+        """:class:`..rng.DrawPlan` word tables of a band of a 2-D run
+        (:class:`..parallel.sharded_stencil.Band`): the utilities, eps, z
+        and the eta draw's site and edge normals at the band's sites and
+        edges, the visit utilities at its visits; the per-chain draws stay
+        whole (see :meth:`.logit.LogitICARGibbs._band_tables`)."""
+        sites = torch.arange(band.site0, band.site1)
+        edges = torch.as_tensor(
+            stencil.noise_index(self.lattice, band.row0, band.row1)
+        )
+        tables = {
+            _OMEGA_B: sites,
+            self._omega_a_update: torch.arange(band.visit0, band.visit1),
+            self._z_update: sites,
+        }
+        for i in range(self.spatial_sweeps):
+            base = 2 + _SWEEP_UPDATES * i
+            tables[base + _ETA] = rng.normal_words(
+                torch.cat([sites, self._field_n + edges])
+            )
+            tables[base + _EPS] = rng.normal_words(sites)
+        return tables
+
     def _eta_quad(self, eta, fixed):
         if self._ops is not None:
             quad = self._ops.quad_form(self._spec, fixed, eta)
         else:
-            quad = torch.sum(eta * (eta @ fixed['Q']), dim=-1)
+            quad = self._sites.sum(eta * (eta @ fixed['Q']), dim=-1)
         return torch.clamp(quad, min=0.0)
 
     def _init_state(self, keys, fixed):
@@ -577,7 +606,7 @@ class ProbitICARGibbs(_ProbitBase):
         for a matrix-free regime its ``constrained_mvnorm`` with omega = 1
         from the warm start, ``eps`` split into the observation noise (n)
         and the field noise."""
-        b = omega_b - state['beta'] @ fixed['X'].T - state['eps']
+        b = omega_b - lincomb(state['beta'], fixed['X'].T) - state['eps']
         if self._ops is None:
             eta = constrained_icar_mvnorm_unit(
                 b, tau, fixed['q_eigvecs'], fixed['q_eigvals'], eps
@@ -632,7 +661,8 @@ class ProbitICARGibbs(_ProbitBase):
             carry = self.init_carry(chains=1)
         state = {k: v[:1] for k, v in carry.states.items()}
         fixed = self.fixed
-        b = state['omega_b'] - state['beta'] @ fixed['X'].T - state['eps']
+        b = (state['omega_b'] - lincomb(state['beta'], fixed['X'].T)
+             - state['eps'])
         tau = state['tau']
         rhs = torch.stack([b, torch.ones_like(b)], dim=1)
         sol = self._ops.cg_solve(
@@ -672,7 +702,7 @@ class ProbitICARGibbs(_ProbitBase):
         """eta | u, beta with eps out: precision tau*Q + I/2 on the
         sum-to-zero subspace, drawn exactly in the eigenbasis with the
         null coordinate zeroed."""
-        b = 0.5 * (omega_b - state['beta'] @ fixed['X'].T)
+        b = 0.5 * (omega_b - lincomb(state['beta'], fixed['X'].T))
         d = tau[:, None] * fixed['q_eigvals'] + 0.5
         coef = (b @ fixed['q_eigvecs']) / d + eps / torch.sqrt(d)
         coef = torch.where(fixed['eig_mask'], coef, torch.zeros_like(coef))

@@ -17,34 +17,41 @@ not acted on.
 
 import torch
 
+from .sites import LOCAL
 
-def pcg(matvec, precond, b, x0, iters, return_resid=False):
+
+def pcg(matvec, precond, b, x0, iters, return_resid=False, sites=LOCAL):
     """Preconditioned CG on each row of ``b`` (..., rows, n), exactly
     ``iters`` iterations, with denominators clamped at 1e-30 so converged
     rows stay frozen. With ``return_resid=True`` also returns
-    ``max_rows ||r_k|| / ||b||`` per batch element."""
+    ``max_rows ||r_k|| / ||b||`` per batch element. Inner products and
+    norms are sums over the last axis through ``sites`` (a band of a 2-D
+    run sums them over its ranks)."""
     tiny = 1e-30
+
+    def dot(u, v):
+        return sites.sum(u * v, dim=-1, keepdim=True)
+
     r = b - matvec(x0)
     z = precond(r)
     p = z
-    rz = torch.sum(r * z, dim=-1, keepdim=True)
+    rz = dot(r, z)
     x = x0
     for _ in range(int(iters)):
         ap = matvec(p)
-        denom = torch.sum(p * ap, dim=-1, keepdim=True)
+        denom = dot(p, ap)
         alpha = rz / torch.clamp(denom, min=tiny)
         x = x + alpha * p
         r = r - alpha * ap
         z = precond(r)
-        rz_new = torch.sum(r * z, dim=-1, keepdim=True)
+        rz_new = dot(r, z)
         beta = rz_new / torch.clamp(rz, min=tiny)
         p = z + beta * p
         rz = rz_new
     if not return_resid:
         return x
     rel = torch.sqrt(torch.amax(
-        torch.sum(r * r, dim=-1)
-        / torch.clamp(torch.sum(b * b, dim=-1), min=tiny),
+        dot(r, r)[..., 0] / torch.clamp(dot(b, b)[..., 0], min=tiny),
         dim=-1,
     ))
     return x, rel

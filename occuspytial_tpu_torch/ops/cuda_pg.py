@@ -20,19 +20,23 @@ from .. import _build
 from .polyagamma import pg_devroye
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
 
 
-def pg_devroye_cuda(subkeys, z):
+def pg_devroye_cuda(subkeys, z, lanes=None):
     """Exact PG(1, z) draws for ``z`` (chains, m) with chain b's
     uniforms from ``subkeys[b]`` (int64 words, see ``rng.pg_uniforms``).
+    ``lanes`` (m,) int64 on the device of z, optional: column j draws as
+    global lane ``lanes[j]`` (one launch draws a band's site and visit
+    lanes as the whole field would); without it column j is lane j.
 
     CUDA tensors go through the kernel (float32 only); CPU tensors
     through the plain sampler. Each kernel launch adds one to
     ``pg_devroye_cuda.launches``.
     """
     if z.device.type == 'cpu':
-        return pg_devroye(subkeys, z)
+        return pg_devroye(subkeys, z, lanes)
     if z.device.type != 'cuda':
         raise ValueError(f'unsupported device: {z.device}')
     if z.dtype != torch.float32:
@@ -46,6 +50,11 @@ def pg_devroye_cuda(subkeys, z):
         raise ValueError('subkeys must be int64 words on the device of z')
     if z.numel() >= 2 ** 31:
         raise ValueError('z must hold fewer than 2**31 elements')
+    if lanes is not None:
+        if (lanes.dtype != torch.int64 or lanes.device != z.device
+                or lanes.shape != (z.shape[1],)):
+            raise ValueError('lanes must be (m,) int64 on the device of z')
+        lanes = lanes.contiguous()
     chains, m = z.shape
     # z is contiguous on the sampler's path, and the kernel reads the key
     # words through their row stride (they are a slice of the step's
@@ -59,7 +68,8 @@ def pg_devroye_cuda(subkeys, z):
     lib.pg_devroye_launch.restype = ctypes.c_int
     with torch.cuda.device(z.device):
         err = lib.pg_devroye_launch(
-            subkeys.data_ptr(), subkeys.stride(0), z.data_ptr(),
+            subkeys.data_ptr(), subkeys.stride(0),
+            None if lanes is None else lanes.data_ptr(), z.data_ptr(),
             out.data_ptr(), chains, m,
             torch.cuda.current_stream(z.device).cuda_stream,
         )

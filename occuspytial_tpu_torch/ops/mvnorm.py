@@ -16,6 +16,8 @@ they are omitted they come from ``torch.randn`` with ``generator``.
 
 import torch
 
+from .sites import LOCAL
+
 
 def _normals(eps, shape, like, generator):
     if eps is not None:
@@ -35,12 +37,12 @@ def cholesky_solve(rhs, chol):
                                          upper=True)
 
 
-def sum_to_zero(x, z):
+def sum_to_zero(x, z, sites=LOCAL):
     """Kriging projection onto ``1'v = 0`` along the last axis: given
     ``x = Lambda^{-1} y`` and ``z = Lambda^{-1} 1``, ``x - z sum(x)/sum(z)``
-    (reference distributions.pyx:24-39)."""
+    (reference distributions.pyx:24-39); the sums through ``sites``."""
     return x - z * (
-        torch.sum(x, dim=-1, keepdim=True) / torch.sum(z, dim=-1, keepdim=True)
+        sites.sum(x, dim=-1, keepdim=True) / sites.sum(z, dim=-1, keepdim=True)
     )
 
 
@@ -135,6 +137,31 @@ def constrained_icar_mvnorm(b, omega, tau, q_dense, sqrt_factor, eps1=None,
     rhs = torch.stack([y, torch.ones_like(y)], dim=-2)
     sol = lambda_cholesky_solve(rhs, omega, tau, q_dense)
     return sum_to_zero(sol[..., 0, :], sol[..., 1, :])
+
+
+def constrained_icar_mvnorm_cg(b, omega, tau, q_dense, sqrt_factor,
+                               eigvecs, eigvals, warm, iters, eps1=None,
+                               eps2=None, generator=None):
+    """The warm-started CG form of :func:`constrained_icar_mvnorm` (the
+    JAX ``constrained_icar_mvnorm_cg``): the same y ~ N(b, Lambda), the
+    two solves by the site-basis PCG of :func:`.cg.icar_cg_solve` from
+    ``warm`` (..., 2, n), then the kriging projection. Returns ``(eta,
+    new_warm)``, the solutions to warm-start the next draw. ``eps1``
+    (..., n) and ``eps2`` (..., sqrt_factor.shape[1]) standard normals."""
+    from .cg import icar_cg_solve
+
+    eps1 = _normals(eps1, b.shape, b, generator)
+    eps2 = _normals(
+        eps2, b.shape[:-1] + (sqrt_factor.shape[1],), b, generator
+    )
+    t = torch.as_tensor(tau, dtype=b.dtype, device=b.device)
+    y = b + torch.sqrt(omega) * eps1 + torch.sqrt(t)[..., None] * (
+        eps2 @ sqrt_factor.T
+    )
+    rhs = torch.stack([y, torch.ones_like(y)], dim=-2)
+    sol = icar_cg_solve(rhs, warm, omega, tau, q_dense, eigvecs, eigvals,
+                        iters)
+    return sum_to_zero(sol[..., 0, :], sol[..., 1, :]), sol
 
 
 def constrained_icar_mvnorm_unit(b, tau, eigvecs, eigvals, eps=None,

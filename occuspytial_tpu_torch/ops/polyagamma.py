@@ -198,14 +198,16 @@ def _rejection(c, ratio, k_exp, planes):
     return (0.25 * x).reshape(shape)
 
 
-def pg_devroye(subkeys, z):
+def pg_devroye(subkeys, z, lanes=None):
     """Exact PG(1, z) draws for ``z`` (chains, m), chain b's uniforms
-    from ``subkeys[b]`` (see :func:`occuspytial_tpu_torch.rng.pg_uniforms`)."""
+    from ``subkeys[b]`` (see :func:`occuspytial_tpu_torch.rng.pg_uniforms`).
+    ``lanes`` (m,) int64, optional: column j draws as global lane
+    ``lanes[j]`` (the lane table of the CUDA kernel)."""
     c, ratio, k_exp = pg_inputs(z)
     return _rejection(
         c, ratio, k_exp,
         lambda k, idx: rng.pg_uniforms(subkeys, k, z.shape[-1], z.dtype,
-                                       lanes=idx),
+                                       lanes=idx, table=lanes),
     )
 
 
@@ -227,6 +229,17 @@ def pg_gamma(subkeys, z, trunc=64):
     )
     tail_mean = full - torch.sum(1.0 / denom, dim=-1)
     return (series + tail_mean) / (2.0 * math.pi * math.pi)
+
+
+def random_polyagamma(keys, z, method='devroye', trunc=64):
+    """The method dispatcher of the JAX ``random_polyagamma`` (the
+    reference's entry point): ``'devroye'`` (exact) or ``'gamma'`` (the
+    truncated series, ``trunc`` terms), per-chain ``keys`` (chains, 2)."""
+    if method == 'devroye':
+        return pg_devroye(keys, z)
+    if method == 'gamma':
+        return pg_gamma(keys, z, trunc=trunc)
+    raise ValueError(f'unknown PG sampling method: {method!r}')
 
 
 def pg_mean(z):

@@ -38,6 +38,7 @@ import torch
 
 from .cg import _batch, pcg
 from .mvnorm import sum_to_zero
+from .sites import LOCAL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,53 +202,88 @@ def setup(spec, dtype=np.float32):
     }
 
 
-def precond_apply(spec, fixed, tau, cbar, v):
-    """(tau * symbol + cbar)^{-1} v in the DCT basis; v is (..., n), tau
-    and cbar broadcast against the (..., rows, cols) grid."""
+def noise_index(spec, row0, row1):
+    """Indices in the ``noise`` layout of the standard normals that the
+    sites of lattice rows [row0, row1) need: per direction every edge with
+    its source row in [row0 - 1, row1 + 1) (the edges that touch the
+    rows, from the row above included), then, with rho < 1, the rows' own
+    site normals. In this order they are the layout of
+    :func:`..parallel.sharded_stencil.band_noise`."""
     r, c = spec.rows, spec.cols
+    a, b = max(row0 - 1, 0), min(row1 + 1, r)
+    out, off = [], 0
+    for dr, dc in _dirs(spec):
+        ec = c - abs(dc)
+        out.append(np.arange(off + a * ec, off + (b - dr) * ec))
+        off += (r - dr) * ec
+    if spec.rho < 1.0:
+        out.append(np.arange(off + row0 * c, off + row1 * c))
+    return np.concatenate(out).astype(np.int64)
+
+
+def precond_apply(spec, fixed, tau, cbar, v, sites=LOCAL):
+    """(tau * symbol + cbar)^{-1} v in the DCT basis; v is (..., n), tau
+    and cbar broadcast against the (..., rows, cols) grid.
+
+    A band of a 2-D run holds the columns of its rows in
+    ``fixed['lat_dct_r']`` (rows, band rows) and its rows of ``v``: its
+    product is its share of the coefficients, which ``sites.psum`` sums
+    over the band's ranks (one all-reduce of the coefficient field per
+    apply), and its output is its own rows. In one process this is the
+    whole transform."""
     cr, cc = fixed['lat_dct_r'], fixed['lat_dct_c']
-    g = v.reshape(v.shape[:-1] + (r, c))
-    coef = torch.matmul(torch.matmul(cr, g), cc.T)
+    g = v.reshape(v.shape[:-1] + (cr.shape[1], spec.cols))
+    coef = sites.psum(torch.matmul(torch.matmul(cr, g), cc.T), 'dct')
     coef = coef / (tau * fixed['lat_sym'] + cbar)
     out = torch.matmul(torch.matmul(cr.T, coef), cc)
     return out.reshape(v.shape)
 
 
-def cg_solve(spec, fixed, rhs, x0, omega, tau, iters, return_resid=False):
+def cg_solve(spec, fixed, rhs, x0, omega, tau, iters, return_resid=False,
+             band=None):
     """Solve (tau*Q + diag(omega)) x = rhs matrix-free by DCT-
     preconditioned CG, ``iters`` iterations from ``x0``; rhs and x0 are
     (chains, rows, n), omega (chains, n), tau (chains,). With
     ``return_resid=True`` also returns the per-chain relative residual
-    (:func:`.cg.pcg`)."""
+    (:func:`.cg.pcg`). ``band``: the operators of a band of a 2-D run
+    (:class:`..parallel.sharded_stencil.BandOps`), whose arrays are then
+    the band's: the same algorithm, its site sums over the band's
+    ranks."""
+    op, sites = (matvec, LOCAL) if band is None else (band.matvec,
+                                                      band.sites)
     t, om = _batch(tau, omega)
     # tau and cbar against the (chains, rows, lattice rows, cols) grid
     t4 = t[..., None]
-    cbar = torch.mean(omega, dim=-1)[..., None, None, None]
+    cbar = (sites.sum(omega, dim=-1) / spec.n)[..., None, None, None]
 
     def mv(v):
-        return t * matvec(spec, fixed, v) + om * v
+        return t * op(spec, fixed, v) + om * v
 
     def pc(v):
-        return precond_apply(spec, fixed, t4, cbar, v)
+        return precond_apply(spec, fixed, t4, cbar, v, sites)
 
-    return pcg(mv, pc, rhs, x0, iters, return_resid=return_resid)
+    return pcg(mv, pc, rhs, x0, iters, return_resid=return_resid,
+               sites=sites)
 
 
 def constrained_mvnorm(spec, fixed, b, omega, tau, warm, iters, eps1, eps,
-                       return_resid=False):
+                       return_resid=False, band=None):
     """Constrained eta draw (1'eta = 0) for the lattice ICAR model: y =
     b + sqrt(omega) eps1 + sqrt(tau) B eps ~ N(b, Lambda), the solve of
     Lambda [x, h] = [y, 1] from ``warm`` (chains, 2, n), then the kriging
-    projection. ``eps1`` (chains, n), ``eps`` (chains, noise_dim(spec)).
-    Returns ``(eta, new_warm)``, plus the per-chain relative residual
-    when ``return_resid=True``."""
+    projection. ``eps1`` (chains, n), ``eps`` (chains, noise_dim(spec)),
+    or for a ``band`` (see :func:`cg_solve`) its sites' and its edges'
+    normals. Returns ``(eta, new_warm)``, plus the per-chain relative
+    residual when ``return_resid=True``."""
+    field, sites = (noise, LOCAL) if band is None else (band.noise,
+                                                        band.sites)
     t = torch.as_tensor(tau, dtype=b.dtype, device=b.device)
-    y = b + torch.sqrt(omega) * eps1 + torch.sqrt(t)[..., None] * noise(
+    y = b + torch.sqrt(omega) * eps1 + torch.sqrt(t)[..., None] * field(
         spec, fixed, eps
     )
     rhs = torch.stack([y, torch.ones_like(y)], dim=-2)
     out = cg_solve(spec, fixed, rhs, warm, omega, tau, iters,
-                   return_resid=return_resid)
+                   return_resid=return_resid, band=band)
     sol = out[0] if return_resid else out
-    eta = sum_to_zero(sol[..., 0, :], sol[..., 1, :])
+    eta = sum_to_zero(sol[..., 0, :], sol[..., 1, :], sites)
     return (eta, sol, out[1]) if return_resid else (eta, sol)

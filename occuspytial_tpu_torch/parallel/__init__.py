@@ -16,21 +16,34 @@ several.
 
 The site-sharded solves of the lattice and graph regimes are in
 :mod:`.sharded_stencil` and :mod:`.sharded_graph`.
+
+:func:`sample_parallel_2d` adds the JAX package's second mesh axis,
+``'sites'``, for the lattice regime: every rank of a (chains x sites)
+grid runs the sampler's own step on its chain run and its band of
+lattice rows (:func:`shard_sampler_2d`), drawing the words the whole
+field gives its sites, and sums every reduction over the sites through
+its chain row's process group. The JAX package partitions the unchanged
+compiled step with GSPMD; no partitioner reaches into this port's
+kernels, so the band step is written out
+(:class:`.sharded_stencil.BandOps`, the samplers' ``_sites`` hook).
 """
 
+import copy
 import pickle
 import time
 
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, rng
 from .._device import resolve_device
 from ..models.base import Carry
 from ..ops.cuda_cg import icar_cg_solve_cuda
 from ..ops.cuda_pg import pg_devroye_cuda
 from ..posterior import PosteriorParameter
-from ._spmd import Workers
+from . import _spmd
+from ._spmd import World, Workers
+from .sharded_stencil import BandOps, bands
 
 #: the kernel wrappers whose launches the workers report to the parent
 _COUNTERS = (pg_devroye_cuda, icar_cg_solve_cuda)
@@ -150,6 +163,8 @@ def sample_parallel(
     mesh = [torch.device(d) for d in mesh]
     if chains is None:
         chains = len(mesh)
+    if chains < 1:
+        raise ValueError('chains must a positive integer.')
     if burnin >= size:
         raise ValueError('burnin value cannot be larger than sample size')
 
@@ -212,4 +227,361 @@ def sample_parallel(
         )[:, burnin:]
         for name in results[0]['draws']
     }
+    return PosteriorParameter(merged)
+
+
+# ----------------------- the 2-D (chains x sites) run ------------------- #
+
+#: fixed-model arrays whose leading axis is the site axis (or the lattice
+#: rows, which the site order subdivides contiguously)
+_SITE_FIXED = ('X', 'obs', 'surveyed', 'lat_deg')
+#: state entries laid out (chains, n_sites)
+_SITE_STATE = ('z', 'k', 'eta', 'spatial', 'eps', 'omega_b')
+
+
+class Mesh2D:
+    """A (chains x sites) grid of torch devices, one rank each, and the
+    backend of their process group (see :func:`mesh_2d`)."""
+
+    def __init__(self, devices, backend):
+        self.devices = [list(row) for row in devices]
+        self.backend = backend
+
+    @property
+    def shape(self):
+        """``{'chains': C, 'sites': S}``, as a JAX mesh's ``shape``."""
+        return {'chains': len(self.devices), 'sites': len(self.devices[0])}
+
+    def __repr__(self):
+        return (f'Mesh2D({self.shape}, {self.backend}, '
+                f'{[[str(d) for d in row] for row in self.devices]})')
+
+
+def mesh_2d(chains=1, sites=None, devices=None, backend=None):
+    """A 2-D ('chains', 'sites') mesh of ``chains x sites`` ranks.
+
+    ``devices``: the ranks' devices, row-major (chain row by chain row),
+    repeats allowed as in :func:`chain_mesh` (``['cuda:0'] * 4`` puts four
+    ranks on one card, ``['cpu'] * 4`` runs on the CPU). Default: every
+    visible CUDA card, one rank each (raises without CUDA), ``sites``
+    defaulting to the cards over ``chains``. ``backend``: ``'nccl'`` when
+    every rank has a card of its own, else ``'gloo'`` (NCCL refuses two
+    ranks on one card; gloo takes CUDA tensors in ``all_reduce``).
+    """
+    if devices is None:
+        devices = chain_mesh()
+        if sites is None:
+            sites = len(devices) // chains
+        devices = devices[:chains * sites]
+    devices = [resolve_device(d) for d in devices]
+    if sites is None:
+        sites = len(devices) // chains
+    if chains < 1 or sites < 1 or len(devices) != chains * sites:
+        raise ValueError(
+            f'{len(devices)} devices for a {chains} x {sites} mesh'
+        )
+    if backend is None:
+        own = len(set(devices)) == len(devices)
+        backend = (
+            'nccl' if own and all(d.type == 'cuda' for d in devices)
+            else 'gloo'
+        )
+    rows = [devices[c * sites:(c + 1) * sites] for c in range(chains)]
+    return Mesh2D(rows, backend)
+
+
+def _check_2d(sampler, n_site_shards):
+    """Raise unless the port has a site-sharded step for ``sampler`` and
+    the mesh's ``'sites'`` extent divides its sites and lattice rows."""
+    from ..models.logit import LogitICARGibbs, LogitRSRGibbs
+    from ..models.probit import ProbitICARGibbs, ProbitRSRGibbs
+
+    if (isinstance(sampler, (LogitRSRGibbs, ProbitRSRGibbs))
+            or getattr(sampler, 'solver', None) == 'graph'):
+        raise NotImplementedError(
+            'sample_parallel_2d serves the lattice regime '
+            "(solver='stencil') of LogitICARGibbs and ProbitICARGibbs; the "
+            "graph regime (solver='graph') and the RSR samplers are "
+            'ROADMAP.md item 15b'
+        )
+    if (not isinstance(sampler, (LogitICARGibbs, ProbitICARGibbs))
+            or sampler.solver != 'stencil'):
+        raise NotImplementedError(
+            f'sample_parallel_2d serves the lattice regime '
+            f"(solver='stencil'); {type(sampler).__name__} with solver="
+            f'{getattr(sampler, "solver", None)!r} has no site-sharded '
+            f'step'
+        )
+    if getattr(sampler, 'pg_method', None) == 'gamma':
+        raise NotImplementedError(
+            "sample_parallel_2d draws Pólya-Gamma by Devroye's method; "
+            "pg_method='gamma' has no lane table"
+        )
+    n, rows = sampler.n, sampler.lattice.rows
+    if n % n_site_shards or rows % n_site_shards:
+        raise ValueError(
+            f"the 'sites' mesh extent {n_site_shards} must divide the "
+            f'site count {n} (and the lattice rows {rows})'
+        )
+
+
+def _check_chains(chains, n_chain_rows):
+    if chains < 1:
+        raise ValueError('chains must a positive integer.')
+    if chains % n_chain_rows:
+        raise ValueError(
+            f"chains ({chains}) must be a multiple of the 'chains' mesh "
+            f'extent ({n_chain_rows})'
+        )
+
+
+def _band_view(sampler, band):
+    """The sampler as band ``band`` runs it: the site-indexed fixed
+    arrays (:data:`_SITE_FIXED`) and the DCT columns of its rows, its
+    visits and their layouts in band-local site indices, its draw plan
+    (the field's words at its sites and edges) and the global lane of
+    each column of its Pólya-Gamma draw (its sites, then its visits). The
+    operators and the site hook are attached in the rank, which holds the
+    group. Tensors are copied, so pickling ships only the band."""
+    out = copy.copy(sampler)
+    sl, vs = slice(band.site0, band.site1), slice(band.visit0, band.visit1)
+    dense = torch.contiguous_format
+    f = dict(sampler.fixed)
+    for name in _SITE_FIXED:
+        part = sl if name != 'lat_deg' else slice(band.row0, band.row1)
+        f[name] = f[name][part].clone(memory_format=dense)
+    f['lat_dct_r'] = f['lat_dct_r'][:, band.row0:band.row1].clone(
+        memory_format=dense)
+    for name in ('W_flat', 'y_flat'):
+        f[name] = f[name][vs].clone(memory_format=dense)
+    f['visit_site'] = f['visit_site'][vs] - band.site0
+    out.fixed = f
+    out.n = band.site1 - band.site0
+    out._visit_site = sampler._visit_site[vs] - band.site0
+    keep = (sampler._site_idx >= band.site0) & (sampler._site_idx
+                                                 < band.site1)
+    out._site_idx = sampler._site_idx[keep] - band.site0
+    out._pad_mask = sampler._pad_mask[keep]
+    out._pad_idx = torch.where(
+        out._pad_mask, sampler._pad_idx[keep] - band.visit0, 0)
+    out._plan = rng.DrawPlan(sampler._plan.counts, sampler.device,
+                             sampler._band_tables(band))
+    out._pg_lanes = torch.cat([
+        torch.arange(band.site0, band.site1),
+        sampler._field_n + torch.arange(band.visit0, band.visit1),
+    ]).to(sampler.device)
+    out._band = band
+    return out
+
+
+def _site_sized(name, value, n):
+    return (name == 'eta_warm'
+            or (name in _SITE_STATE and value.ndim >= 2
+                and value.shape[-1] == n))
+
+
+def shard_sampler_2d(sampler, carry, mesh):
+    """Lay a sampler and its carry out over a 2-D ('chains', 'sites')
+    mesh (the JAX ``shard_sampler_2d``'s layout): returns one
+    ``(band sampler, carry part)`` pair per rank, row-major. Chain row c
+    takes the c-th contiguous run of chains; site rank s of a row takes
+    the s-th band of lattice rows: the band view of the sampler (on the
+    CPU, without its group) and the run's carry with its site-sized
+    states (:data:`_SITE_STATE`, ``eta_warm``) cut to the band's sites.
+    The carry part is ``(keys, states, step)``.
+
+    Serves the lattice regime of ``LogitICARGibbs`` and
+    ``ProbitICARGibbs``; the ``'sites'`` extent must divide the site
+    count and the lattice rows, the chain count the ``'chains'``
+    extent."""
+    n_rows, n_sites = mesh.shape['chains'], mesh.shape['sites']
+    _check_2d(sampler, n_sites)
+    _check_chains(carry.keys.shape[0], n_rows)
+    cpu = torch.device('cpu')
+    shipped = sampler._moved(cpu)
+    shipped.__dict__.pop('final_carry', None)
+    band_list = bands(shipped.lattice,
+                      np.asarray(shipped.data.visit_site), n_sites)
+    views = [_band_view(shipped, b) for b in band_list]
+    out = []
+    for run in _chain_runs(_carry_to(carry, cpu), n_rows):
+        for band, view in zip(band_list, views):
+            states = {
+                name: (v[..., band.site0:band.site1]
+                       if _site_sized(name, v, sampler.n) else v).clone()
+                for name, v in run.states.items()
+            }
+            out.append((view, (run.keys.clone(), states, run.step)))
+    return out
+
+
+#: steps of a 2-D rank before its collectives' timers restart (the first
+#: steps pay the rank's cold costs: library handles, communicators)
+_WARM_STEPS = 2
+
+
+class _StepClock:
+    """A progress bar that times a rank's steps: it synchronises the card
+    after each step and keeps the host clock, and after
+    :data:`_WARM_STEPS` steps restarts the collectives' timers."""
+
+    def __init__(self, device, sites):
+        self.device, self.sites = device, sites
+        self.times = [self._now()]
+
+    def _now(self):
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def update(self, k):
+        self.times.append(self._now())
+        if len(self.times) == _WARM_STEPS + 1:
+            self.sites.seconds.clear()
+            self.sites.calls.clear()
+
+
+def _sample_band(sampler, carry, size, progress, timed):
+    """Rank body of :func:`sample_parallel_2d`: attach the band's
+    operators and site hook (its chain row's group) to the band sampler,
+    run ``size`` steps from its carry part, and return the draws, the
+    final carry, the kernel launches, each step's seconds and (timed)
+    the collectives' seconds after the warm steps, as numpy."""
+    device = _spmd.rank_device()
+    sampler = sampler._moved(device)
+    ops = BandOps(sampler._band, _spmd.subgroup(), timed)
+    sampler._band_ops, sampler._sites = ops, ops.sites
+    keys, states, step = carry
+    carry = _carry_to(Carry(keys, states, step), device)
+    before = [c.launches for c in _COUNTERS]
+    clock = _StepClock(device, ops.sites)
+    bars = [clock] + ([_Progress(_spmd.rank_conn())] if progress else [])
+    carry, out = sampler._run(carry, size, bars)
+    step_seconds = np.diff(clock.times)
+    return {
+        'draws': {k: v.cpu().numpy() for k, v in out.items()},
+        'keys': carry.keys.cpu().numpy(),
+        'states': {k: v.cpu().numpy() for k, v in carry.states.items()},
+        'step': carry.step,
+        'launches': [c.launches - b for c, b in zip(_COUNTERS, before)],
+        'step_seconds': step_seconds,
+        'collective_seconds': dict(ops.sites.seconds),
+        'collective_calls': dict(ops.sites.calls),
+    }
+
+
+def _gather_row(row, name, n_band, key):
+    """One chain row's entry ``name`` of ``row[*][key]``: site-sized
+    entries concatenated over the bands, the others from site rank 0
+    after a check that every site rank holds the same bits."""
+    vals = [r[key][name] for r in row]
+    if _site_sized(name, vals[0], n_band):
+        return np.concatenate(vals, axis=-1)
+    for s, v in enumerate(vals[1:], 1):
+        if not np.array_equal(v, vals[0], equal_nan=True):
+            raise RuntimeError(
+                f'site rank {s} holds other {name!r} values than site '
+                f'rank 0 of its chain row'
+            )
+    return vals[0]
+
+
+def sample_parallel_2d(
+    sampler, size, mesh, burnin=0, start=None, chains=None,
+    progressbar=False, *, timed=False,
+):
+    """Run ``sampler`` over a 2-D ('chains', 'sites') mesh
+    (:func:`mesh_2d`): the chains split into ``mesh.shape['chains']``
+    runs, each run's sites into ``mesh.shape['sites']`` bands of lattice
+    rows, one rank per (run, band), joined in one process group with a
+    ``sites`` subgroup per chain row. Draws match the unsharded sampler up
+    to partitioned-reduction rounding (bit for bit on a 1 x 1 mesh).
+
+    The JAX ``sample_parallel_2d``'s arguments and errors: ``chains``
+    defaults to the ``'chains'`` extent and must be a positive multiple
+    of it; the ``'sites'`` extent must divide the site count and the
+    lattice rows. Serves the lattice regime (``solver='stencil'``) of
+    ``LogitICARGibbs`` and ``ProbitICARGibbs``; any other sampler or
+    regime raises ``NotImplementedError``. The carry and the cold-start
+    solver check are made once, here, by ``sampler.init_carry``.
+
+    Returns a :class:`~..posterior.PosteriorParameter` in the chain order
+    of one process; alpha, beta and tau come from site rank 0 of each
+    chain row, which must hold the same bits as its other site ranks;
+    site-sized ``track`` entries are joined over the bands. Sets
+    ``sampler.final_carry`` (gathered on the sampler's device; a tripped
+    solver guardrail raises after it is set) and
+    ``sampler.rank_step_seconds`` (per rank, each step's seconds, the card
+    synchronised after every step), and adds the ranks' kernel launches
+    to the wrappers' counts. ``timed=True`` also synchronises the card
+    around every all-reduce of the ranks and sets
+    ``sampler.rank_collectives``: per rank, label -> (seconds, calls)
+    over the steps after the first two, ``'dct'`` for the
+    preconditioner's coefficient field.
+    """
+    n_rows, n_sites = mesh.shape['chains'], mesh.shape['sites']
+    if chains is None:
+        chains = n_rows
+    _check_chains(chains, n_rows)
+    if burnin >= size:
+        raise ValueError('burnin value cannot be larger than sample size')
+    _check_2d(sampler, n_sites)
+    carry = sampler.init_carry(chains, start)
+    parts = shard_sampler_2d(sampler, carry, mesh)
+    devices = [d for row in mesh.devices for d in row]
+    if any(d.type == 'cuda' for d in devices):
+        _build.build()
+    bars = sampler._progress_bars(bool(progressbar), size, 1)
+
+    def on_progress(r, k):
+        for bar in bars:
+            bar.update(k)
+
+    world = World(
+        len(devices), devices, mesh.backend,
+        subgroups=[range(c * n_sites, (c + 1) * n_sites)
+                   for c in range(n_rows)],
+    )
+    try:
+        results = world.run_each(
+            _sample_band,
+            [(view, part, size, bool(bars) and r == 0, timed)
+             for r, (view, part) in enumerate(parts)],
+            on_progress,
+        )
+    finally:
+        world.close()
+        for bar in bars:
+            bar.close()
+
+    n_band = sampler.n // n_sites
+    rows = [results[c * n_sites:(c + 1) * n_sites] for c in range(n_rows)]
+    draws = {
+        name: np.concatenate(
+            [_gather_row(row, name, n_band, 'draws') for row in rows],
+            axis=1)
+        for name in results[0]['draws']
+    }
+    dev = sampler.device
+    sampler.final_carry = Carry(
+        torch.as_tensor(np.concatenate([row[0]['keys'] for row in rows]),
+                        device=dev),
+        {name: torch.as_tensor(np.concatenate(
+            [_gather_row(row, name, n_band, 'states') for row in rows]),
+            device=dev)
+         for name in results[0]['states']},
+        results[0]['step'],
+    )
+    sampler.rank_step_seconds = [r['step_seconds'] for r in results]
+    if timed:
+        sampler.rank_collectives = [
+            {k: (r['collective_seconds'][k], r['collective_calls'][k])
+             for k in r['collective_calls']}
+            for r in results
+        ]
+    for i, counter in enumerate(_COUNTERS):
+        counter.launches += sum(r['launches'][i] for r in results)
+    sampler._check_run_solver_health(sampler.final_carry)
+    merged = {name: np.moveaxis(v, 0, 1)[:, burnin:]
+              for name, v in draws.items()}
     return PosteriorParameter(merged)

@@ -15,7 +15,9 @@ run in a forked child), with a pipe to the parent:
   them, each rank given its contiguous slices of the global arrays on its
   device: the counterpart of ``jax.shard_map`` over a ``'sites'`` axis.
   The rendezvous is a file in a fresh temporary directory, so two worlds
-  never race for a port.
+  never race for a port. A world may also hold subgroups (a 2-D run's
+  ``sites`` group of each chain row, :func:`subgroup`), which every rank
+  creates in the same order.
 
 Backends: ``gloo`` on the CPU, and on the card either ``gloo`` with CUDA
 tensors (several ranks on one card: gloo stages ``all_reduce`` through
@@ -161,8 +163,32 @@ def _to_numpy(tree):
     return tree
 
 
-def _rank_main(conn, rank, world, device, backend, init_method):
-    """A rank: join the group, then run each task sent until ``None``."""
+#: this rank's pipe to the parent, device and subgroup (set by _rank_main)
+_RANK = {}
+
+
+def rank_conn():
+    """In a rank: its pipe to the parent (a task may send
+    ``('progress', k)`` on it before it returns)."""
+    return _RANK['conn']
+
+
+def rank_device():
+    """In a rank: its torch device."""
+    return _RANK['device']
+
+
+def subgroup():
+    """In a rank: the subgroup of the world's ``subgroups`` that holds
+    this rank (None if it is in none)."""
+    return _RANK.get('subgroup')
+
+
+def _rank_main(conn, rank, world, device, backend, init_method,
+               subgroups=()):
+    """A rank: join the group and create every subgroup (each rank
+    creates all of them, in one order), then run each task sent until
+    ``None``."""
     device = torch.device(device)
     if device.type == 'cpu':
         torch.set_num_threads(1)
@@ -172,6 +198,11 @@ def _rank_main(conn, rank, world, device, backend, init_method):
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world
     )
+    _RANK.update(conn=conn, device=device)
+    for ranks in subgroups:
+        group = dist.new_group(list(ranks))
+        if rank in ranks:
+            _RANK['subgroup'] = group
     conn.send(('result', 'ready'))
     while True:
         task = conn.recv()
@@ -212,13 +243,14 @@ class World:
     ``devices``: one per rank (default ``'cuda:0'`` for each, raising
     without CUDA: pass ``['cpu'] * world`` to run on the CPU);
     ``backend``: ``'gloo'`` (CPU, or CUDA tensors with several ranks on a
-    card) or ``'nccl'`` (one rank per card). Use as a context manager, or call
-    :meth:`close`. The ranks start here and join their group while the
-    caller goes on (several worlds start side by side); the first
-    :meth:`run` waits for them.
+    card) or ``'nccl'`` (one rank per card); ``subgroups``: lists of ranks,
+    each made a process group in every rank (see :func:`subgroup`). Use as
+    a context manager, or call :meth:`close`. The ranks start here and
+    join their group while the caller goes on (several worlds start side
+    by side); the first :meth:`run` waits for them.
     """
 
-    def __init__(self, world, devices=None, backend='gloo'):
+    def __init__(self, world, devices=None, backend='gloo', subgroups=()):
         if devices is None:
             devices = [resolve_device('cuda:0')] * world
         devices = list(devices)
@@ -230,7 +262,8 @@ class World:
         try:
             self._workers = Workers(
                 _rank_main,
-                [(r, world, str(d), backend, init)
+                [(r, world, str(d), backend, init,
+                  [list(g) for g in subgroups])
                  for r, d in enumerate(devices)],
                 [f'rank {r} on {d}, {backend}' for r, d in enumerate(devices)],
             )
@@ -250,17 +283,24 @@ class World:
         (None: the argument goes to every rank whole).
         """
         local = [split(args, dims, r, self.world) for r in range(self.world)]
-        if not self._joined:
-            self._workers.gather()
-            self._joined = True
-        for r in range(self.world):
-            self._workers.send(r, (fn, local[r]))
-        parts = self._workers.gather()
+        parts = self.run_each(fn, local)
         if isinstance(parts[0], tuple):
             return tuple(
                 np.concatenate(p, axis=out_dim) for p in zip(*parts)
             )
         return np.concatenate(parts, axis=out_dim)
+
+    def run_each(self, fn, args_list, on_progress=None):
+        """``fn(*args_list[r])`` on rank r (numpy arrays in the arguments
+        arrive as tensors on the rank's device); returns the ranks'
+        outputs in rank order, tensors as numpy. ``on_progress(r, k)``
+        sees each progress message a rank sends."""
+        if not self._joined:
+            self._workers.gather()
+            self._joined = True
+        for r in range(self.world):
+            self._workers.send(r, (fn, args_list[r]))
+        return self._workers.gather(on_progress)
 
     def close(self):
         try:

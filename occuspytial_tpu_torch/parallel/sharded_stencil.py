@@ -16,10 +16,25 @@ the CG's inner products are sums over the ranks.
 Call them on every rank of the group, each with its own band (for
 example through :class:`._spmd.World`). ``group=None`` is the default
 group.
+
+The 2-D (chains x sites) sampler runs the unsharded sampler's own
+algorithm on each band (:class:`BandOps`): the same stencil, the band's
+share of the noise ``B eps`` from the normals the whole field gives its
+edges (:func:`band_noise`), and the unsharded solve's DCT
+preconditioner, whose coefficients need every row: each rank transforms
+its rows and one all-reduce of the (..., rows, cols) coefficient field per
+apply sums them (:func:`..ops.stencil.precond_apply`).
 """
 
-import torch
+import dataclasses
+import time
 
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..ops import stencil
+from ..ops.sites import Sites
 from ._spmd import exchange_halo, psum
 
 
@@ -102,3 +117,126 @@ def cg_solve_sharded(
         p = z + beta * p
         rz = rzn
     return x
+
+
+@dataclasses.dataclass(frozen=True)
+class Band:
+    """Site rank ``index`` of ``extent`` in a 2-D run: lattice rows
+    [row0, row1), sites [site0, site1) and flat visits [visit0, visit1)
+    (visits are site-major, so a band's visits are contiguous)."""
+
+    index: int
+    extent: int
+    row0: int
+    row1: int
+    site0: int
+    site1: int
+    visit0: int
+    visit1: int
+
+
+def bands(spec, visit_site, extent):
+    """The ``extent`` row bands of the lattice ``spec``, each with its
+    sites and its run of ``visit_site`` (numpy, the site of each flat
+    visit). Raises unless ``extent`` divides the lattice rows."""
+    check_extent(spec, extent)
+    per = spec.rows // extent
+    out = []
+    for i in range(extent):
+        r0, r1 = i * per, (i + 1) * per
+        s0, s1 = r0 * spec.cols, r1 * spec.cols
+        v0, v1 = np.searchsorted(visit_site, [s0, s1])
+        out.append(Band(i, extent, r0, r1, s0, s1, int(v0), int(v1)))
+    return out
+
+
+class BandSites(Sites):
+    """The site reductions of a band: each partial result all-reduced
+    over the band's ``sites`` group. With ``timed=True`` the card is
+    synchronised around each all-reduce and its seconds are summed by
+    label into ``seconds`` (calls into ``calls``)."""
+
+    def __init__(self, group, timed=False):
+        self.group = group
+        self.timed = timed
+        self.seconds, self.calls = {}, {}
+
+    def psum(self, x, label=None):
+        if not self.timed:
+            return psum(x, self.group)
+        label = label or 'sum'
+        sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=self.group)
+        sync()
+        self.seconds[label] = self.seconds.get(label, 0.0) + (
+            time.perf_counter() - t0)
+        self.calls[label] = self.calls.get(label, 0) + 1
+        return x
+
+
+def band_noise(spec, fixed, eps, band):
+    """The band's rows of ``B eps`` (:func:`..ops.stencil.noise`) from
+    ``eps`` (..., len(noise_index(spec, row0, row1))): the normals of the
+    edges with a source row in [row0 - 1, row1 + 1), then (rho < 1) the
+    band's site normals. Each site sums its edges' terms in the order of
+    the whole-field noise, so the band's rows are the whole field's bit
+    for bit."""
+    r, c = spec.rows, spec.cols
+    a, b = max(band.row0 - 1, 0), min(band.row1 + 1, r)
+    lead = eps.shape[:-1]
+    out = eps.new_zeros(lead + (b - a, c))
+    sr = float(np.sqrt(np.asarray(spec.rho, np.float32)))
+    off = 0
+    for dr, dc in stencil._dirs(spec):
+        er, ec = b - a - dr, c - abs(dc)
+        e = sr * eps[..., off:off + er * ec].reshape(lead + (er, ec))
+        off += er * ec
+        if dc >= 0:
+            out[..., :er, :ec] += e
+            out[..., dr:, dc:] -= e
+        else:  # anti-diagonal: (i, j + 1) -> (i + 1, j)
+            out[..., :er, -dc:] += e
+            out[..., dr:, :ec] -= e
+    out = out[..., band.row0 - a:band.row1 - a, :]
+    if spec.rho < 1.0:
+        rows = band.row1 - band.row0
+        eps_d = eps[..., off:off + rows * c].reshape(lead + (rows, c))
+        out = out + torch.sqrt((1.0 - spec.rho) * fixed['lat_deg']) * eps_d
+    return out.reshape(lead + ((band.row1 - band.row0) * c,))
+
+
+class BandOps:
+    """The lattice operators of one band of a 2-D run, in the place of
+    :mod:`..ops.stencil` as a band sampler's ``_ops`` (the names and
+    signatures a step calls). Its ``fixed`` arrays are the band's:
+    ``lat_deg`` its rows, ``lat_dct_r`` the DCT columns of its rows.
+    ``matvec`` exchanges halos with the neighbouring bands; ``quad_form``,
+    the solve's inner products and its preconditioner sum over the group
+    through :class:`BandSites`."""
+
+    def __init__(self, band, group, timed=False):
+        self.band = band
+        self.group = group
+        self.sites = BandSites(group, timed)
+
+    def matvec(self, spec, fixed, v):
+        rows = (self.band.row1 - self.band.row0, spec.cols)
+        return matvec_sharded(
+            spec, fixed['lat_deg'], v.reshape(v.shape[:-1] + rows),
+            self.group,
+        ).reshape(v.shape)
+
+    def quad_form(self, spec, fixed, v):
+        return self.sites.sum(v * self.matvec(spec, fixed, v), dim=-1)
+
+    def noise(self, spec, fixed, eps):
+        return band_noise(spec, fixed, eps, self.band)
+
+    def cg_solve(self, spec, fixed, *args, **kwargs):
+        return stencil.cg_solve(spec, fixed, *args, band=self, **kwargs)
+
+    def constrained_mvnorm(self, spec, fixed, *args, **kwargs):
+        return stencil.constrained_mvnorm(spec, fixed, *args, band=self,
+                                          **kwargs)

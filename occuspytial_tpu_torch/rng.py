@@ -96,14 +96,35 @@ class DrawPlan:
     int64 tensor, the same words :func:`words` gives for each update
     alone: batching the step's draws into one elementwise pass saves
     some hundred small launches per update on the card.
+
+    ``tables`` (optional) maps an update index to a 1-D int64 array of
+    word indices below its count: that update then returns only those
+    words of its full draw, in the table's order (a band of sites draws
+    the words the whole field would give its sites). Normal i reads words
+    2i and 2i + 1 and uniform i reads word i, so a table is word-level:
+    it may start or end at either half of a counter. Only the counters
+    the table touches are computed, each once.
     """
 
-    def __init__(self, counts, device='cpu'):
-        ctrs, self.slices, off = [], {}, 0
+    def __init__(self, counts, device='cpu', tables=None):
+        tables = tables or {}
+        self.counts = dict(counts)
+        ctrs, self.slices, self.gathers, off = [], {}, {}, 0
         for uid, n in counts.items():
             n_ctr = (int(n) + 1) // 2
             if n_ctr > (1 << _LANE_BITS) or uid >= (1 << 8):
                 raise ValueError('draw too large for the counter layout')
+            if uid in tables:
+                idx = torch.as_tensor(tables[uid], dtype=torch.int64)
+                if idx.numel() and (idx.min() < 0 or idx.max() >= int(n)):
+                    raise ValueError(
+                        f'word table of update {uid} leaves [0, {n})'
+                    )
+                used, pos = torch.unique(idx >> 1, return_inverse=True)
+                ctrs.append((uid << _LANE_BITS) | used)
+                self.gathers[uid] = (2 * (off + pos) + (idx & 1)).to(device)
+                off += used.numel()
+                continue
             ctrs.append(
                 (uid << _LANE_BITS)
                 | torch.arange(n_ctr, dtype=torch.int64)
@@ -117,7 +138,16 @@ class DrawPlan:
             keys[:, :1], keys[:, 1:], int(step), self.x1[None]
         )
         w = torch.stack([y0, y1], dim=-1).reshape(keys.shape[0], -1)
-        return {uid: w[:, a:b] for uid, (a, b) in self.slices.items()}
+        out = {uid: w[:, a:b] for uid, (a, b) in self.slices.items()}
+        out.update({uid: w[:, g] for uid, g in self.gathers.items()})
+        return out
+
+
+def normal_words(idx):
+    """Word indices (2i, 2i + 1 for each i) of the normals ``idx`` of an
+    update: a :class:`DrawPlan` table that draws those normals alone."""
+    idx = torch.as_tensor(idx, dtype=torch.int64)
+    return torch.stack([2 * idx, 2 * idx + 1], dim=-1).reshape(-1)
 
 
 def words(keys, step, update, count):
@@ -179,11 +209,15 @@ def gamma(shape, w, dtype=torch.float32):
     )
 
 
-def pg_uniforms(subkeys, k, m, dtype=torch.float32, lanes=None):
+def pg_uniforms(subkeys, k, m, dtype=torch.float32, lanes=None,
+                table=None):
     """Uniforms of Pólya-Gamma rejection round ``k``: lane l of chain b
     uses counters ``(k, 5 l + j)``, j < 5, under ``subkeys[b]``, with the
     word pairs in order (the 10th word is unused). Returns (9, chains, m),
-    or (9, len(lanes)) for the flat (chain * m + lane) indices ``lanes``.
+    or (9, len(lanes)) for the flat (chain * m + column) indices
+    ``lanes``. Column j draws as lane j, or as global lane ``table[j]``
+    when a lane table (m,) int64 is given: a band of a 2-D run draws the
+    uniforms the whole field gives its lanes.
     """
     dev = subkeys.device
     if lanes is None:
@@ -192,6 +226,8 @@ def pg_uniforms(subkeys, k, m, dtype=torch.float32, lanes=None):
     else:
         flat = lanes
     chain, lane = flat // m, flat % m
+    if table is not None:
+        lane = table[lane]
     x1 = lane[:, None] * 5 + torch.arange(5, device=dev)
     y0, y1 = threefry2x32(
         subkeys[chain, 0][:, None], subkeys[chain, 1][:, None], int(k), x1

@@ -83,6 +83,29 @@ def test_pg_fused_entry_takes_z_and_strided_keys(dev, m):
         pg_devroye_cuda(sub.to(torch.int32), z)
 
 
+@pytest.mark.parametrize('m', [37, 4034])
+def test_pg_kernel_lane_table(dev, m):
+    """A lane table draws column j as global lane lanes[j]: the kernel
+    with a random table equals the full-width draw at those lanes bit for
+    bit, and the plain sampler with the same table to rounding."""
+    sub = rng.words(rng.chain_keys(6, 4, rng.RUN, dev), 0, 0, 2)
+    gen = torch.Generator(device=dev).manual_seed(m)
+    total = 3 * m + 11
+    z_full = 5.0 * torch.randn((4, total), device=dev, generator=gen)
+    lanes = torch.randperm(total, device=dev, generator=gen)[:m]
+    full = pg_devroye_cuda(sub, z_full)
+    before = pg_devroye_cuda.launches
+    got = pg_devroye_cuda(sub, z_full[:, lanes].contiguous(), lanes)
+    torch.cuda.synchronize()
+    assert pg_devroye_cuda.launches == before + 1
+    assert torch.equal(got, full[:, lanes])
+    want = tpg.pg_devroye(sub, z_full[:, lanes], lanes)
+    rel = ((got - want).abs() / want.abs()).cpu().numpy()
+    assert (rel <= 1e-5).mean() >= 0.999
+    with pytest.raises(ValueError):
+        pg_devroye_cuda(sub, z_full[:, :m], lanes.to(torch.int32))
+
+
 def _cg_system(dev, n, seed=0):
     """U, S of a lattice ICAR precision (n = 200) or, for any other n, a
     random orthogonal U with eigenvalues in [0, 8], one of them 0."""
@@ -501,3 +524,99 @@ def test_halo_exchange_on_cuda_tensors_under_gloo(dev):
     assert np.array_equal(got.reshape(3, -1), single)
     np.testing.assert_allclose(gmv.reshape(2, -1), gsingle, rtol=1e-6,
                                atol=1e-6 * np.abs(gsingle).max())
+
+
+# ------------------- chain-count invariance, per sampler ---------------- #
+
+def _invariance_cases():
+    """(id, factory) for every sampler and eta regime of chip_smoke.py
+    phases 5-12, at the small widths of the tests above."""
+    import scipy.sparse as sps
+
+    def head():
+        return make_data(n=150, ns=100, p=3, q=2, random_state=10)[:4]
+
+    def lat():
+        return make_lattice_dataset(10, 10, ns=50, seed=3)[:4]
+
+    def big():
+        return make_lattice_dataset(20, 30, ns=300, seed=5)[:4]
+
+    def graph_q(d):
+        return (sps.csr_matrix(d[0]),) + tuple(d[1:])
+
+    return {
+        'logit-cg-xla': lambda: LogitICARGibbs(
+            *head(), random_state=4, solver='cg', cg_iters=15),
+        'logit-cg-pallas': lambda: LogitICARGibbs(
+            *head(), random_state=4, solver='cg', cg_iters=15,
+            cg_impl='pallas'),
+        'logit-rsr': lambda: LogitRSRGibbs(*head(), random_state=4, q=15),
+        'probit-spectral': lambda: ProbitICARGibbs(*lat(), random_state=4),
+        'probit-rsr': lambda: ProbitRSRGibbs(*lat(), random_state=4),
+        'probit-rsr-ordered': lambda: ProbitRSRGibbs(
+            *lat(), random_state=4, collapsed=False),
+        'logit-stencil': lambda: LogitICARGibbs(
+            *big(), random_state=4, lattice=(20, 30, 8)),
+        'logit-graph': lambda: LogitICARGibbs(
+            *graph_q(big()), random_state=4, solver='graph'),
+        'probit-stencil': lambda: ProbitICARGibbs(
+            *big(), random_state=4, lattice=(20, 30, 8)),
+        'probit-graph': lambda: ProbitICARGibbs(
+            *graph_q(big()), random_state=4, solver='graph'),
+    }
+
+
+#: chains 0-1 among 2 chains against among 3 after 6 steps: the same bits,
+#: except where a sum over the sites is a torch reduction or a batched
+#: product whose CUDA kernel shape follows the number of rows reduced
+#: together (the 6-row solve stacks: 12 rows against 18): the spectral
+#: CG's products and the stencil and graph solves' inner products. There
+#: the measured bound (NVIDIA H100 80GB HBM3, 700 W;
+#: scripts/torch_chain_invariance.py): alpha and beta within 3.6e-7,
+#: tau within 1.003e-6 of itself; asserted as (rtol, atol).
+_COUNT_BOUND = {'logit-cg-xla': (2e-6, 1e-6), 'logit-stencil': (2e-6, 1e-6),
+                'logit-graph': (2e-6, 1e-6)}
+
+
+@pytest.mark.parametrize('case', list(_invariance_cases()))
+def test_chain0_invariant_to_chain_count_on_the_card(dev, case):
+    """A chain's draws depend on its own key alone: chains 0-1 run among
+    2 chains and among 3 give the same bits (the CPU tests'
+    ``test_chain0_invariant_to_chain_count``, on the card), or stay within
+    the measured bound of :data:`_COUNT_BOUND`."""
+    s = _invariance_cases()[case]()
+    a = s.sample(6, chains=2, progressbar=False)
+    b = s.sample(6, chains=3, progressbar=False)
+    bound = _COUNT_BOUND.get(case)
+    for name in ('alpha', 'beta', 'tau'):
+        if bound is None:
+            np.testing.assert_array_equal(a[name], b[name][:2])
+        else:
+            np.testing.assert_allclose(a[name], b[name][:2], rtol=bound[0],
+                                       atol=bound[1])
+
+
+def test_sample_parallel_2d_gloo_on_one_card(dev):
+    """The 2-D sampler: a 1 x 2 gloo mesh of two ranks on cuda:0 (two
+    lattice bands) against the in-process run, K1 once a step in each
+    rank plus the parent's cold-start check."""
+    from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
+
+    Q, W, X, y, *_ = make_lattice_dataset(20, 30, ns=300, seed=5)
+
+    def make():
+        return LogitICARGibbs(Q, W, X, y, random_state=4,
+                              lattice=(20, 30, 8))
+
+    s = make()
+    before = pg_devroye_cuda.launches
+    post = sample_parallel_2d(s, 6, mesh_2d(1, 2, ['cuda:0'] * 2),
+                              chains=4)
+    assert pg_devroye_cuda.launches == before + 1 + 2 * 6
+    assert s.final_carry.keys.device.type == 'cuda'
+    local = make().sample(6, chains=4, progressbar=False)
+    for name in ('alpha', 'beta'):
+        np.testing.assert_allclose(post[name], local[name], rtol=2e-3,
+                                   atol=2e-4)
+    np.testing.assert_allclose(post['tau'], local['tau'], rtol=2e-3)

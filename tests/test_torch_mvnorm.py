@@ -93,6 +93,44 @@ def test_sum_to_zero_and_constrained_draw_match_jax():
            jmv.sum_to_zero(jnp.asarray(x), jnp.asarray(z)))
 
 
+def test_constrained_draw_cg_matches_jax():
+    """The warm-started CG form of the constrained draw against the JAX
+    ``constrained_icar_mvnorm_cg`` on its own key's noise: the same eta
+    and the same new warm start (the solutions of [y, 1])."""
+    q = lattice_precision(10, 15).toarray().astype(np.float64)
+    s_eig, u_eig, sf = icar_spectral(q)
+    n = q.shape[0]
+    gen = np.random.default_rng(4)
+    b = gen.normal(size=n).astype(np.float32)
+    omega = gen.uniform(0.05, 0.3, n).astype(np.float32)
+    tau = np.float32(1.7)
+    warm = 0.1 * gen.normal(size=(2, n)).astype(np.float32)
+    arrays = [a.astype(np.float32) for a in (q, sf, u_eig, s_eig)]
+    key = jax.random.key(6)
+    want_eta, want_warm = jmv.constrained_icar_mvnorm_cg(
+        key, jnp.asarray(b), jnp.asarray(omega), tau,
+        *(jnp.asarray(a) for a in arrays), jnp.asarray(warm), 12,
+    )
+    k1, k2 = jax.random.split(key)
+    eps1 = jax.random.normal(k1, (n,), jnp.float32)
+    eps2 = jax.random.normal(k2, (sf.shape[1],), jnp.float32)
+    eta, new_warm = tmv.constrained_icar_mvnorm_cg(
+        _t(b)[None], _t(omega)[None], torch.tensor([tau]),
+        *(_t(a) for a in arrays), _t(warm)[None], 12,
+        _t(eps1)[None], _t(eps2)[None],
+    )
+    _close(eta[0].numpy(), want_eta)
+    _close(new_warm[0].numpy(), want_warm)
+    assert abs(float(eta.sum())) < 1e-3
+    # the draw is a function of the given noise: without it, torch draws
+    gen_t = torch.Generator().manual_seed(0)
+    again = tmv.constrained_icar_mvnorm_cg(
+        _t(b)[None], _t(omega)[None], torch.tensor([tau]),
+        *(_t(a) for a in arrays), _t(warm)[None], 12, generator=gen_t,
+    )[0]
+    assert again.shape == (1, n) and not torch.equal(again, eta)
+
+
 def _logf(a0, b0, a_lin, c_quad):
     def jf(lt):
         t = jnp.exp(lt)

@@ -96,6 +96,16 @@ def test_chain_count_must_divide():
         sample_parallel(s, size=4, burnin=4, chains=4, mesh=MESH)
 
 
+def test_chains_must_be_positive():
+    """The JAX package's error, letter for letter, before any carry is
+    made (``init_carry`` at 0 chains fails inside a reshape)."""
+    s = LogitRSRGibbs(Q, W, X, y, random_state=10, device='cpu')
+    s.init_carry = None  # never reached
+    with pytest.raises(ValueError) as err:
+        sample_parallel(s, size=4, chains=0, mesh=MESH)
+    assert str(err.value) == 'chains must a positive integer.'
+
+
 def test_submesh():
     s = LogitRSRGibbs(Q, W, X, y, random_state=10, device='cpu')
     mesh = chain_mesh(n_devices=2, devices=MESH)

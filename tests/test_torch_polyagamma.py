@@ -213,3 +213,49 @@ def test_kernel_wrapper_on_cpu_is_the_plain_sampler():
     before = pg_devroye_cuda.launches
     assert torch.equal(pg_devroye_cuda(sub, z), tpg.pg_devroye(sub, z))
     assert pg_devroye_cuda.launches == before
+
+
+def test_lane_table_draws_the_full_width_lanes():
+    """A lane table makes column j draw as global lane lanes[j]: a band of
+    lanes drawn alone is the full-width draw gathered at those lanes, bit
+    for bit, through the plain sampler and the wrapper's CPU path."""
+    sub = rng.words(rng.chain_keys(3, 3, rng.RUN), 0, 0, 2)
+    gen = np.random.default_rng(7)
+    z_full = torch.tensor(gen.normal(0.0, 5.0, (3, 300)), dtype=torch.float32)
+    full = tpg.pg_devroye(sub, z_full)
+    for lanes in (torch.arange(101, 171),
+                  torch.tensor(gen.permutation(300)[:64])):
+        z = z_full[:, lanes].contiguous()
+        got = tpg.pg_devroye(sub, z, lanes)
+        assert torch.equal(got, full[:, lanes])
+        assert torch.equal(pg_devroye_cuda(sub, z, lanes), got)
+    # without a table, column j is lane j
+    assert torch.equal(tpg.pg_devroye(sub, z_full[:, :50]), full[:, :50])
+
+
+def test_random_polyagamma_dispatches_as_jax():
+    """The JAX entry point's dispatch: 'devroye' is the exact sampler,
+    'gamma' the truncated series with its ``trunc``, and any other method
+    raises the JAX error."""
+    sub = rng.words(rng.chain_keys(5, 2, rng.RUN), 0, 0, 2)
+    z = torch.linspace(-4.0, 4.0, 200).expand(2, 200).contiguous()
+    assert torch.equal(tpg.random_polyagamma(sub, z),
+                       tpg.pg_devroye(sub, z))
+    assert torch.equal(tpg.random_polyagamma(sub, z, 'gamma', trunc=16),
+                       tpg.pg_gamma(sub, z, trunc=16))
+    import jax
+
+    for mod, key, zz in ((tpg, sub, z),
+                         (jpg, jax.random.key(0), jnp.asarray(z.numpy()))):
+        with pytest.raises(ValueError) as err:
+            mod.random_polyagamma(key, zz, method='nope')
+        assert str(err.value) == "unknown PG sampling method: 'nope'"
+    # and the draws have the JAX function's moments
+    zz = torch.full((4, 4096), 2.0)
+    keys = rng.words(rng.chain_keys(6, 4, rng.RUN), 0, 0, 2)
+    jd = np.asarray(jpg.random_polyagamma(jax.random.key(1),
+                                          jnp.full((16384,), 2.0)))
+    d = tpg.random_polyagamma(keys, zz).double().numpy().ravel()
+    sd = math.sqrt(float(tpg.pg_var(torch.tensor(2.0, dtype=torch.float64)))
+                   * (1 / d.size + 1 / jd.size))
+    assert abs(d.mean() - jd.mean()) < 5 * sd

@@ -140,3 +140,42 @@ def test_pg_uniforms_lane_subset_matches_full_plane():
     idx = torch.tensor([0, 5, 40, 110])
     part = rng.pg_uniforms(sub, 4, 37, lanes=idx)
     assert torch.equal(part, full.reshape(9, -1)[:, idx])
+
+
+def test_draw_plan_tables_draw_the_words_at_their_indices():
+    """A word table draws only the listed words of an update's full draw,
+    in the table's order: ranges that start or end at either half of a
+    counter (an odd band edge), normals by their word pairs, repeats and
+    any order; updates without a table are unchanged."""
+    keys = rng.chain_keys(4, 3, rng.RUN)
+    counts = {0: 2, 1: 65, 2: 300, 7: 9}
+    full = rng.DrawPlan(counts)(keys, 12)
+    tables = {
+        1: torch.arange(7, 40),  # odd start, even end
+        2: rng.normal_words(torch.arange(33, 91)),  # normals 33..90
+        7: torch.tensor([8, 0, 3, 3]),
+    }
+    plan = rng.DrawPlan(counts, tables=tables)
+    got = plan(keys, 12)
+    assert plan.counts == counts
+    assert torch.equal(got[0], full[0])
+    for uid, idx in tables.items():
+        assert torch.equal(got[uid], full[uid][:, idx])
+    # the normals of a table are the full draw's normals at those indices
+    assert torch.equal(rng.normal(got[2]), rng.normal(full[2])[:, 33:91])
+    # only the counters a table touches are computed
+    assert plan.x1.numel() == 1 + 17 + 58 + 3
+    with pytest.raises(ValueError, match='leaves'):
+        rng.DrawPlan(counts, tables={7: torch.tensor([9])})
+
+
+def test_pg_uniforms_lane_table():
+    """With a lane table, column j draws lane table[j]'s uniforms."""
+    sub = rng.words(rng.chain_keys(1, 3, rng.RUN), 0, 0, 2)
+    full = rng.pg_uniforms(sub, 4, 50)
+    table = torch.tensor([49, 3, 17, 18, 0])
+    got = rng.pg_uniforms(sub, 4, 5, table=table)
+    assert torch.equal(got, full[:, :, table])
+    flat = torch.tensor([0, 6, 12])  # chain 0 col 0, chain 1 col 1, ...
+    part = rng.pg_uniforms(sub, 4, 5, lanes=flat, table=table)
+    assert torch.equal(part, got.reshape(9, -1)[:, flat])
