@@ -14,10 +14,10 @@ lattice (``solver='stencil'`` and ``'graph'``, 32 and 64 chains), then
 processes), the site-sharded lattice and graph solves over
 ``torch.distributed`` worlds (gloo ranks on one card, NCCL one rank per
 card) and ``parallel.sample_parallel_2d`` (both ICAR samplers' lattice
-regime over a chains x sites mesh of ranks), and prints one JSON line of
-per-kernel numbers and, last,
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script exits non-zero
-without that line; it also fails without CUDA. ``--stop-after N`` ends
+and graph regimes over a chains x sites mesh of ranks), and prints one
+JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the script exits non-zero without
+that line; it also fails without CUDA. ``--stop-after N`` ends
 after phase N (a quick build-and-check run).
 """
 
@@ -65,7 +65,9 @@ STENCIL_ITERS, GRAPH_ITERS = 200, 24
 SHORT_ITERS = 3
 GRAPH_BLOCK, GRAPH_RANK = 256, 512
 # phase 15: sample_parallel_2d on config 5 (phase 10's data and seed, 32
-# chains), 4 site ranks (25-row bands)
+# chains), 4 site ranks (25-row bands); phase 16: the same on config 5g
+# (64 chains) in phase 14's 256-site tiles (10 blocks a rank: phase 11's
+# 128-site tiles give 79 blocks, which no 4-rank mesh divides)
 TWO_D_STEPS, TWO_D_SITES = 6, 4
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
@@ -511,26 +513,60 @@ def sharded_phase(dev, card):
     done(t0)
 
 
-def two_d_phase(dev, card, counters):
-    """Phase 15: ``sample_parallel_2d`` at config 5's full width (the
-    100 x 100 lattice, 32 chains, phase 10's seed) against the same runs
-    in one process. Returns K1's launches in (a)."""
+def two_d_phase(dev, card, counters, regime):
+    """Phase 15 (``regime='stencil'``) or 16 (``'graph'``):
+    ``sample_parallel_2d`` at the full width of config 5 (the 100 x 100
+    lattice, 32 chains, phase 10's seed) or config 5g (the same lattice as
+    a sparse Q, 64 chains, deflation rank 512 and 256-site tiles: 40
+    blocks, 10 a rank) against the same runs in one process. Each family's
+    sampler is built once; every run takes a shallow copy of it, whose
+    cold-start solver check has not run (``.copy()`` would reseed).
+    Returns K1's launches in (a)."""
+    import copy
+
+    import scipy.sparse as sps
     import torch
 
     from occuspytial_tpu_torch import LogitICARGibbs, ProbitICARGibbs
     from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
 
-    t0 = phase(f'15 sample_parallel_2d: config 5 (100 x 100 lattice, '
-               f'{LARGE_CHAINS["stencil"]} chains), chains x sites meshes')
-    data = make_lattice_dataset(
+    graph = regime == 'graph'
+    chains = LARGE_CHAINS[regime]
+    if graph:
+        t0 = phase(f'16 sample_parallel_2d: config 5g (the 100 x 100 '
+                   f'lattice as a sparse Q, {chains} chains, rank '
+                   f'{GRAPH_RANK}, {GRAPH_BLOCK}-site tiles), chains x sites '
+                   f'meshes')
+    else:
+        t0 = phase(f'15 sample_parallel_2d: config 5 (100 x 100 lattice, '
+                   f'{chains} chains), chains x sites meshes')
+    Q, W, X, y = make_lattice_dataset(
         LARGE['rows'], LARGE['cols'], ns=LARGE['ns'], seed=LARGE['seed'],
         min_v=LARGE['min_v'], max_v=LARGE['max_v'])[:4]
-    chains = LARGE_CHAINS['stencil']
+    if graph:
+        q_in = sps.csr_matrix(Q)
+        kw = dict(solver='graph', graph_rank=GRAPH_RANK,
+                  graph_block=GRAPH_BLOCK)
+    else:
+        q_in, kw = Q, dict(lattice=(LARGE['rows'], LARGE['cols'], 8))
     n_cards = torch.cuda.device_count()
+    built = {}
+    for cls in (LogitICARGibbs, ProbitICARGibbs):
+        tb = time.perf_counter()
+        built[cls] = cls(q_in, W, X, y, random_state=LARGE['seed'],
+                         device=dev, **kw)
+        if graph:
+            g, iters = built[cls].graph, built[cls].cg_iters
+            n_pad = -(-len(X) // GRAPH_BLOCK) * GRAPH_BLOCK
+            check((g.block, g.n_pad, g.deflate, iters)
+                  == (GRAPH_BLOCK, n_pad, GRAPH_RANK, 7)
+                  and (g.n_pad // g.block) % TWO_D_SITES == 0,
+                  f'graph layout {g} cg_iters {iters}')
+            print(f'    {cls.__name__} build {time.perf_counter() - tb:.2f} '
+                  f's: {g}, cg_iters {iters}')
 
     def make(cls):
-        return cls(*data, random_state=LARGE['seed'], device=dev,
-                   lattice=(LARGE['rows'], LARGE['cols'], 8))
+        return copy.copy(built[cls])
 
     def run(cls, mesh, timed=False):
         s = make(cls)
@@ -543,6 +579,8 @@ def two_d_phase(dev, card, counters):
         check_posterior(post, chains, TWO_D_STEPS,
                         {'alpha': 3, 'beta': 3, 'tau': 0})
         check_state(s.final_carry)
+        check(s.last_solver_resid < s.solver_check_tol,
+              f'2-D residual {s.last_solver_resid}')
         drift = plane_drift(s.final_carry.states['eta'])
         check(drift < 1e-4, f'2-D eta off the hyperplane: {drift:.2e}')
         # steady ms a step: the slowest rank's mean over the steps after
@@ -578,15 +616,15 @@ def two_d_phase(dev, card, counters):
     s, post_a, (pg_a, cg_a), ms_a, drift = run(LogitICARGibbs, gloo)
     want = TWO_D_SITES * TWO_D_STEPS + 1
     check(pg_a == want, f'2-D K1 launches {pg_a} != {want}')
-    check(cg_a == 0, 'the 2-D lattice path launched the K3 CG')
+    check(cg_a == 0, f'the 2-D {regime} path launched the K3 CG')
     diff = close(post_a, ref[LogitICARGibbs], ('alpha', 'beta', 'tau'),
                  '(a) against one process')
     print(f'    (a) logit, {gloo.shape}, gloo, 4 ranks on cuda:0: K1 '
           f'{pg_a} launches ({TWO_D_SITES} ranks x {TWO_D_STEPS} steps + '
-          f'the cold-start check), every site rank of the row holds the '
-          f'same alpha, beta and tau, |sum eta| / sum |eta| {drift:.2e}, '
-          f'max |diff| against one process {diff:.3e} (rtol 2e-3, atol '
-          f'2e-4)')
+          f'the cold-start check), K3 {cg_a}, every site rank of the row '
+          f'holds the same alpha, beta and tau, |sum eta| / sum |eta| '
+          f'{drift:.2e}, last_solver_resid {s.last_solver_resid:.3e}, max '
+          f'|diff| against one process {diff:.3e} (rtol 2e-3, atol 2e-4)')
     # (b) one rank: the band is the field
     one = mesh_2d(1, 1, ['cuda:0'], backend='gloo')
     s_b, post_b, _, ms_b, _ = run(LogitICARGibbs, one)
@@ -618,17 +656,21 @@ def two_d_phase(dev, card, counters):
           f'against one process {diff_d:.3e}, |sum eta| / sum |eta| '
           f'{drift:.2e}')
     # (e) ms a step (the ranks' sampling seconds, start-up excluded), and
-    # the DCT all-reduce's share in runs that synchronise around every
-    # all-reduce
+    # each all-reduce label's share in runs that synchronise around every
+    # all-reduce: 'dct' (the lattice preconditioner's coefficient field),
+    # 'perm' (the graph solve's moves to and from the block runs),
+    # 'gather', 'halo' (graph) and 'sum'
     shares = {}
     for label, mesh in (('gloo', gloo), ('NCCL', nccl)):
         st, _, _, (ms, _), _ = run(LogitICARGibbs, mesh, timed=True)
-        dct = max(c['dct'][0] / float(np.sum(t[2:])) for c, t in
-                  zip(st.rank_collectives, st.rank_step_seconds))
-        coll = max(sum(v[0] for v in c.values()) / float(np.sum(t[2:]))
-                   for c, t in zip(st.rank_collectives,
-                                   st.rank_step_seconds))
-        shares[label] = (dct, st.rank_collectives[0]['dct'][1], coll, ms)
+        steady = [float(np.sum(t[2:])) for t in st.rank_step_seconds]
+        by = {k: max(c[k][0] / t for c, t in
+                     zip(st.rank_collectives, steady))
+              for k in st.rank_collectives[0]}
+        coll = max(sum(v[0] for v in c.values()) / t
+                   for c, t in zip(st.rank_collectives, steady))
+        calls = {k: v[1] for k, v in st.rank_collectives[0].items()}
+        shares[label] = (by, calls, coll, ms)
     print(f'    (e) ms a step ({card}), steady (steps 3-{TWO_D_STEPS}, the '
           f'slowest rank) and [first step]: one process logit '
           f'{ref_ms[LogitICARGibbs]:.3f}, probit '
@@ -637,13 +679,15 @@ def two_d_phase(dev, card, counters):
           f'[{ms_b[1]:.1f}], (c) NCCL x{n_cards} {ms_c[0]:.3f} '
           f'[{ms_c[1]:.1f}], (d) probit gloo x{TWO_D_SITES} {ms_d[0]:.3f} '
           f'[{ms_d[1]:.1f}]')
-    for label, (dct, calls, coll, ms) in shares.items():
+    for label, (by, calls, coll, ms) in shares.items():
         how = (' (stages through the host)' if label == 'gloo'
                else '')
         print(f'    (e) {label}{how}, steps 3-{TWO_D_STEPS} of a run '
-              f'synchronised around each all-reduce ({ms:.3f} ms a step): '
-              f'DCT all-reduce {dct:.3f} of the step ({calls} applies), '
-              f'all all-reduces {coll:.3f}')
+              f'synchronised around each all-reduce ({ms:.3f} ms a step), '
+              f'share of the step by all-reduce: '
+              + ', '.join(f'{k} {v:.3f} ({calls[k]} calls)'
+                          for k, v in sorted(by.items()))
+              + f'; all all-reduces {coll:.3f}')
     done(t0)
     return pg_a
 
@@ -770,7 +814,7 @@ def large_n_phases(dev, kind, card, counters):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--stop-after', type=int, default=16)
+    ap.add_argument('--stop-after', type=int, default=17)
     args = ap.parse_args()
 
     import torch
@@ -1217,9 +1261,12 @@ def main():
     sharded_phase(dev, card)
     if args.stop_after < 15:
         return
-    two_d_pg = two_d_phase(dev, card, counters)
+    two_d_pg = two_d_phase(dev, card, counters, 'stencil')
+    if args.stop_after < 16:
+        return
+    two_d_graph_pg = two_d_phase(dev, card, counters, 'graph')
 
-    t0 = phase('16 report')
+    t0 = phase('17 report')
     # no single PyTorch call computes either function (a fixed-round
     # rejection sampler; a fixed-iteration PCG), so library_ms is null
     common = {'route': 'cuda', 'library_ms': None}
@@ -1232,6 +1279,7 @@ def main():
         launches_logit_stencil=large_launches['stencil'],
         launches_logit_graph=large_launches['graph'],
         launches_parallel=par_pg, launches_2d=two_d_pg,
+        launches_2d_graph=two_d_graph_pg,
         max_abs_err=pg_err, mismatch_share=mismatch,
         ms=pg_ms, plain_ms=pg_plain_ms, bound_ms=pg_bound,
         bound_by='operations' if pg_ops / PEAK_F32 > pg_bytes / PEAK_BYTES

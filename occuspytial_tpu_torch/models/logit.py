@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from .. import rng
 from .._device import resolve_dtype
-from ..ops import icar, stencil
+from ..ops import icar
 from ..ops.cg import icar_cg_solve_spectral
 from ..ops.cuda_cg import icar_cg_solve_cuda
 from ..ops.cuda_pg import pg_devroye_cuda
@@ -349,19 +349,19 @@ class LogitICARGibbs(GibbsBase):
 
     def _band_tables(self, band):
         """:class:`..rng.DrawPlan` word tables of a band of a 2-D run
-        (:class:`..parallel.sharded_stencil.Band`): the field's draws at
-        the band's sites and at the edges that touch its rows, so the band
-        draws the words the whole field gives them; the per-chain draws
-        stay whole."""
+        (:class:`..parallel.sharded_stencil.Band` on a lattice,
+        :class:`..parallel.sharded_graph.GraphBand` on a graph): the
+        field's draws at the band's sites and at the field noise's
+        normals its sites need (the edges that touch them, then any
+        site normals), so the band draws the words the whole field gives
+        them; the per-chain draws stay whole."""
         sites = torch.arange(band.site0, band.site1)
-        edges = torch.as_tensor(
-            stencil.noise_index(self.lattice, band.row0, band.row1)
-        )
+        noise = rng.normal_words(band.noise_index(self._spec))
         tables = {self._z_update: sites}
         for i in range(self.spatial_sweeps):
             base = 1 + _SWEEP_UPDATES * i
             tables[base + _EPS1] = rng.normal_words(sites)
-            tables[base + _NOISE] = rng.normal_words(edges)
+            tables[base + _NOISE] = noise
         return tables
 
     # -------------------------- update segments ----------------------- #

@@ -30,7 +30,7 @@ import torch
 from torch.special import log_ndtr
 
 from .. import rng
-from ..ops import icar, stencil
+from ..ops import icar
 from ..ops.mvnorm import (
     cholesky_solve,
     constrained_icar_mvnorm_unit,
@@ -558,15 +558,13 @@ class ProbitICARGibbs(_ProbitBase):
         return self.n + self._ops.noise_dim(self._spec)
 
     def _band_tables(self, band):
-        """:class:`..rng.DrawPlan` word tables of a band of a 2-D run
-        (:class:`..parallel.sharded_stencil.Band`): the utilities, eps, z
-        and the eta draw's site and edge normals at the band's sites and
-        edges, the visit utilities at its visits; the per-chain draws stay
-        whole (see :meth:`.logit.LogitICARGibbs._band_tables`)."""
+        """:class:`..rng.DrawPlan` word tables of a band of a 2-D run (a
+        lattice or a graph band): the utilities, eps, z and the eta draw's
+        site and field-noise normals at the band's sites and edges, the
+        visit utilities at its visits; the per-chain draws stay whole (see
+        :meth:`.logit.LogitICARGibbs._band_tables`)."""
         sites = torch.arange(band.site0, band.site1)
-        edges = torch.as_tensor(
-            stencil.noise_index(self.lattice, band.row0, band.row1)
-        )
+        edges = torch.as_tensor(band.noise_index(self._spec))
         tables = {
             _OMEGA_B: sites,
             self._omega_a_update: torch.arange(band.visit0, band.visit1),

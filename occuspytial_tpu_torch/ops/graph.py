@@ -43,6 +43,7 @@ import torch
 
 from .cg import _batch, _mm, pcg
 from .mvnorm import sum_to_zero
+from .sites import LOCAL
 
 #: panel-size cap for the block-tridiagonal layout: 3 * nb * bs^2 * 4 B of
 #: device memory for the tiles; past it the ELL gathers take over. The
@@ -302,7 +303,15 @@ def _bottom_eigs(q_csr, m):
 
 def matvec(spec, fixed, v):
     """Q v on (..., n) vectors: one gather and a padded-lane sum."""
-    nb = v[..., fixed['gr_idx']]  # (..., n, k_max)
+    return ell_matvec(fixed, v, v)
+
+
+def ell_matvec(fixed, v, full):
+    """The rows of Q v that ``fixed`` holds: ``v`` (..., rows) is the
+    vector at those rows and ``full`` (..., n) the whole vector, which
+    ``gr_idx`` indexes. In one process both are the field's vector; a band
+    of a 2-D run holds its rows of the panels and gathers ``full``."""
+    nb = full[..., fixed['gr_idx']]  # (..., rows, k_max)
     return fixed['gr_deg'] * v - torch.sum(fixed['gr_w'] * nb, dim=-1)
 
 
@@ -316,13 +325,39 @@ def noise(spec, fixed, eps):
     site sums its incident edges' signed ``sqrt(w_e) eps_e`` over the
     incidence panel (fixed order, no atomics), plus ``sqrt(surplus) eps``
     per site when the graph has a surplus."""
-    e = eps[..., :spec.n_edges]
+    return incidence_noise(spec, fixed, eps, spec.n_edges)
+
+
+def incidence_noise(spec, fixed, eps, n_edges):
+    """The rows of B eps that ``fixed`` holds: ``eps`` (..., n_edges +
+    rows if the graph has a surplus) holds the normals of the ``n_edges``
+    edges that ``gr_inc_idx`` indexes, then one per row. In one process
+    these are all the edges and sites; a band of a 2-D run holds its
+    sites' incidence rows remapped to its edges (:func:`noise_index`)."""
+    e = eps[..., :n_edges]
     out = torch.sum(fixed['gr_inc_w'] * e[..., fixed['gr_inc_idx']], dim=-1)
     if spec.has_surplus:
+        rows = fixed['gr_inc_idx'].shape[0]
         out = out + fixed['gr_surplus_sqrt'] * eps[
-            ..., spec.n_edges:spec.n_edges + spec.n
+            ..., n_edges:n_edges + rows
         ]
     return out
+
+
+def noise_index(spec, arrays, site0, site1):
+    """The edges that the sites [site0, site1) need for their rows of
+    ``noise`` (host side, numpy): ``(edges, inc_idx, inc_w)``, the sorted
+    ids of the edges incident to the sites and the sites' rows of the
+    incidence panel (``arrays['gr_inc_idx']``, ``'gr_inc_w'``) with each
+    edge id replaced by its position in ``edges`` (padding at position 0,
+    weight 0). Each site sums the same terms in the same order as in the
+    whole field's panel."""
+    inc_idx = np.asarray(arrays['gr_inc_idx'])[site0:site1]
+    inc_w = np.asarray(arrays['gr_inc_w'])[site0:site1]
+    real = inc_w != 0
+    edges = np.unique(inc_idx[real]).astype(np.int64)
+    local = np.where(real, np.searchsorted(edges, inc_idx), 0)
+    return edges, local.astype(inc_idx.dtype), inc_w.copy()
 
 
 def banded_matvec(spec, fixed, v):
@@ -342,7 +377,7 @@ def banded_matvec(spec, fixed, v):
     return y.transpose(0, 1).reshape(lead + (spec.n_pad,))
 
 
-def _deflated_jacobi(jac, u, s, tau, cbar, r):
+def _deflated_jacobi(jac, u, s, tau, cbar, r, sites=LOCAL):
     """Deflated-Jacobi apply (SPD by construction): exact spectral
     treatment 1/(tau*s_i + cbar) on the bottom eigenbasis U, symmetric
     Jacobi on its complement,
@@ -350,89 +385,138 @@ def _deflated_jacobi(jac, u, s, tau, cbar, r):
         M^{-1} = U D_s^{-1} U' + (I - UU') D_j (I - UU').
 
     The products with U fold every chain's rows into one matrix; ``u`` may
-    be stored in another dtype (``eig_dtype``)."""
-    ru = _mm(r, u)
+    be stored in another dtype (``eig_dtype``). The two thin products
+    ``r U`` and ``w U`` contract over the sites, through ``sites`` (a band
+    of a 2-D run holds its rows of U and sums them over its ranks)."""
+    ru = sites.psum(_mm(r, u))
     r_perp = r - _mm(ru, u.T)
     w = r_perp * jac
-    w_perp = w - _mm(_mm(w, u), u.T)
+    w_perp = w - _mm(sites.psum(_mm(w, u)), u.T)
     return w_perp + _mm(ru / (tau * s + cbar), u.T)
 
 
-def precond_apply(spec, fixed, tau, omega, r):
+def _cbar(spec, omega, sites):
+    """The mean of omega over the field's sites, as ``sum / n`` (a band
+    sums its sites over its ranks), so one rank gives one process's
+    bits."""
+    return sites.sum(omega, dim=-1, keepdim=True) / spec.n
+
+
+def precond_apply(spec, fixed, tau, omega, r, band=None):
     """Deflated-Jacobi preconditioner in the original (ELL) order; tau
-    and omega broadcast against ``r``."""
+    and omega broadcast against ``r``. ``band``: the operators of a band
+    of a 2-D run (:class:`..parallel.sharded_graph.GraphBandOps`), whose
+    arrays are then the band's rows and whose site sums run over its
+    ranks."""
+    sites = LOCAL if band is None else band.sites
     jac = 1.0 / (tau * fixed['gr_deg'] + omega)
     if spec.deflate == 0:
         return r * jac
     return _deflated_jacobi(
         jac, fixed['gr_defl_vecs'], fixed['gr_defl_vals'], tau,
-        torch.mean(omega, dim=-1, keepdim=True), r,
+        _cbar(spec, omega, sites), r, sites,
     )
 
 
-def cg_solve(spec, fixed, rhs, x0, omega, tau, iters, return_resid=False):
+class _FieldMoves:
+    """The banded layout's moves in one process, with the names of a
+    band's (:class:`..parallel.sharded_graph.GraphBandOps`): into the
+    permuted order, zero on the padded tail of ``tail`` lanes, and back."""
+
+    def __init__(self, spec):
+        self.tail = spec.n_pad - spec.n
+
+    def to_run(self, x, fixed):
+        return torch.nn.functional.pad(x[..., fixed['gr_perm']],
+                                       (0, self.tail))
+
+    def from_run(self, x, fixed):
+        return x[..., fixed['gr_iperm']]
+
+    def banded_matvec(self, spec, fixed, v):
+        return banded_matvec(spec, fixed, v)
+
+
+def cg_solve(spec, fixed, rhs, x0, omega, tau, iters, return_resid=False,
+             band=None):
     """Solve (tau*Q + diag(omega)) x = rhs matrix-free, ``iters``
     iterations from ``x0``; rhs and x0 (chains, rows, n), omega (chains,
     n), tau (chains,). With ``return_resid=True`` also returns the
     per-chain relative residual (:func:`.cg.pcg`).
 
     With a banded layout (``spec.block > 0``) the CG runs in the permuted
-    space on the tiles: rhs, warm start and omega are permuted once per
-    solve and padded (omega with 1, which keeps the padded subsystem SPD
-    with solution zero)."""
+    space on the tiles: rhs, warm start and omega are permuted together
+    once per solve and padded (omega with 1, which keeps the padded
+    subsystem SPD with solution zero).
+
+    ``band``: the operators of a band of a 2-D run
+    (:class:`..parallel.sharded_graph.GraphBandOps`), whose arrays are
+    then the band's: its sites' ELL rows, or its run of the permuted
+    blocks. The same algorithm, its site sums over the band's ranks; the
+    band's moves carry its sites to and from its block run."""
+    sites = LOCAL if band is None else band.sites
     t, om = _batch(tau, omega)
     if not spec.block:
+        op = matvec if band is None else band.matvec
+
         def mv(v):
-            return t * matvec(spec, fixed, v) + om * v
+            return t * op(spec, fixed, v) + om * v
 
         def pc(v):
-            return precond_apply(spec, fixed, t, om, v)
+            return precond_apply(spec, fixed, t, om, v, band)
 
-        return pcg(mv, pc, rhs, x0, iters, return_resid=return_resid)
+        return pcg(mv, pc, rhs, x0, iters, return_resid=return_resid,
+                   sites=sites)
 
-    perm, iperm = fixed['gr_perm'], fixed['gr_iperm']
-    pad = spec.n_pad - spec.n
-
-    def to_p(x, fill=0.0):
-        return torch.nn.functional.pad(x[..., perm], (0, pad), value=fill)
-
-    omega_p = to_p(om, fill=1.0)
+    moves = _FieldMoves(spec) if band is None else band
+    k, tail = rhs.shape[-2], moves.tail
+    moved = moves.to_run(torch.cat(
+        [rhs, x0, om.expand(rhs.shape[:-2] + (1, om.shape[-1]))], dim=-2),
+        fixed)
+    real = moved.shape[-1] - tail
+    omega_p = torch.nn.functional.pad(moved[..., 2 * k:, :real], (0, tail),
+                                      value=1.0)
     jac = 1.0 / (t * fixed['gr_deg_p'] + omega_p)
 
     def mv(v):
-        return t * banded_matvec(spec, fixed, v) + omega_p * v
+        return t * moves.banded_matvec(spec, fixed, v) + omega_p * v
 
     if spec.deflate:
         u, s = fixed['gr_defl_vecs_p'], fixed['gr_defl_vals']
-        cbar = torch.mean(omega, dim=-1)[..., None, None]
+        cbar = _cbar(spec, omega, sites)[..., None]
 
         def pc(r):
-            return _deflated_jacobi(jac, u, s, t, cbar, r)
+            return _deflated_jacobi(jac, u, s, t, cbar, r, sites)
     else:
         def pc(r):
             return r * jac
 
-    out = pcg(mv, pc, to_p(rhs), to_p(x0), iters, return_resid=return_resid)
+    out = pcg(mv, pc, moved[..., :k, :], moved[..., k:2 * k, :], iters,
+              return_resid=return_resid, sites=sites)
     if return_resid:
-        return out[0][..., iperm], out[1]
-    return out[..., iperm]
+        return moves.from_run(out[0], fixed), out[1]
+    return moves.from_run(out, fixed)
 
 
 def constrained_mvnorm(spec, fixed, b, omega, tau, warm, iters, eps1, eps,
-                       return_resid=False):
+                       return_resid=False, band=None):
     """Constrained eta draw (1'eta = 0) on an arbitrary graph: the
     perturbed right-hand side from ``eps1`` (chains, n) and ``eps``
     (chains, noise_dim(spec)), the solve of Lambda [x, h] = [y, 1] from
     ``warm`` (chains, 2, n), then the kriging projection. Returns ``(eta,
     new_warm)``, plus the per-chain relative residual when
-    ``return_resid=True``."""
+    ``return_resid=True``. ``band`` (see :func:`cg_solve`): ``eps1`` is
+    then its sites' normals and ``eps`` its edges' and sites' (the layout
+    of its ``noise``)."""
+    field, sites = (noise, LOCAL) if band is None else (band.noise,
+                                                        band.sites)
     t = torch.as_tensor(tau, dtype=b.dtype, device=b.device)
-    y = b + torch.sqrt(omega) * eps1 + torch.sqrt(t)[..., None] * noise(
+    y = b + torch.sqrt(omega) * eps1 + torch.sqrt(t)[..., None] * field(
         spec, fixed, eps
     )
     rhs = torch.stack([y, torch.ones_like(y)], dim=-2)
     out = cg_solve(spec, fixed, rhs, warm, omega, tau, iters,
-                   return_resid=return_resid)
+                   return_resid=return_resid, band=band)
     sol = out[0] if return_resid else out
-    eta = sum_to_zero(sol[..., 0, :], sol[..., 1, :])
+    eta = sum_to_zero(sol[..., 0, :], sol[..., 1, :], sites)
     return (eta, sol, out[1]) if return_resid else (eta, sol)

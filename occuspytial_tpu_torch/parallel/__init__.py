@@ -18,14 +18,16 @@ The site-sharded solves of the lattice and graph regimes are in
 :mod:`.sharded_stencil` and :mod:`.sharded_graph`.
 
 :func:`sample_parallel_2d` adds the JAX package's second mesh axis,
-``'sites'``, for the lattice regime: every rank of a (chains x sites)
-grid runs the sampler's own step on its chain run and its band of
-lattice rows (:func:`shard_sampler_2d`), drawing the words the whole
-field gives its sites, and sums every reduction over the sites through
-its chain row's process group. The JAX package partitions the unchanged
-compiled step with GSPMD; no partitioner reaches into this port's
-kernels, so the band step is written out
-(:class:`.sharded_stencil.BandOps`, the samplers' ``_sites`` hook).
+``'sites'``, for the lattice and the graph regimes: every rank of a
+(chains x sites) grid runs the sampler's own step on its chain run and
+its band of sites (:func:`shard_sampler_2d`: lattice rows, or a run of
+the graph's sites in the original order with a run of its permuted
+blocks), drawing the words the whole field gives its sites, and sums
+every reduction over the sites through its chain row's process group.
+The JAX package partitions the unchanged compiled step with GSPMD; no
+partitioner reaches into this port's kernels, so the band step is
+written out (:class:`.sharded_stencil.BandOps`,
+:class:`.sharded_graph.GraphBandOps`, the samplers' ``_sites`` hook).
 """
 
 import copy
@@ -43,6 +45,13 @@ from ..ops.cuda_pg import pg_devroye_cuda
 from ..posterior import PosteriorParameter
 from . import _spmd
 from ._spmd import World, Workers
+from .sharded_graph import (
+    GraphBand,
+    GraphBandOps,
+    band_fixed,
+    check_bands,
+    graph_bands,
+)
 from .sharded_stencil import BandOps, bands
 
 #: the kernel wrappers whose launches the workers report to the parent
@@ -232,9 +241,10 @@ def sample_parallel(
 
 # ----------------------- the 2-D (chains x sites) run ------------------- #
 
-#: fixed-model arrays whose leading axis is the site axis (or the lattice
-#: rows, which the site order subdivides contiguously)
-_SITE_FIXED = ('X', 'obs', 'surveyed', 'lat_deg')
+#: fixed-model arrays whose leading axis is the site axis (the regimes'
+#: arrays are cut by :func:`_lattice_fixed` and
+#: :func:`.sharded_graph.band_fixed`)
+_SITE_FIXED = ('X', 'obs', 'surveyed')
 #: state entries laid out (chains, n_sites)
 _SITE_STATE = ('z', 'k', 'eta', 'spatial', 'eps', 'omega_b')
 
@@ -292,31 +302,32 @@ def mesh_2d(chains=1, sites=None, devices=None, backend=None):
 
 def _check_2d(sampler, n_site_shards):
     """Raise unless the port has a site-sharded step for ``sampler`` and
-    the mesh's ``'sites'`` extent divides its sites and lattice rows."""
+    the mesh's ``'sites'`` extent splits its field: the site count and
+    the lattice rows, or on a graph the site count and (banded) the
+    block count."""
     from ..models.logit import LogitICARGibbs, LogitRSRGibbs
-    from ..models.probit import ProbitICARGibbs, ProbitRSRGibbs
+    from ..models.probit import ProbitICARGibbs
 
-    if (isinstance(sampler, (LogitRSRGibbs, ProbitRSRGibbs))
-            or getattr(sampler, 'solver', None) == 'graph'):
-        raise NotImplementedError(
-            'sample_parallel_2d serves the lattice regime '
-            "(solver='stencil') of LogitICARGibbs and ProbitICARGibbs; the "
-            "graph regime (solver='graph') and the RSR samplers are "
-            'ROADMAP.md item 15b'
-        )
     if (not isinstance(sampler, (LogitICARGibbs, ProbitICARGibbs))
-            or sampler.solver != 'stencil'):
+            or isinstance(sampler, LogitRSRGibbs)
+            or sampler.solver not in ('stencil', 'graph')):
         raise NotImplementedError(
-            f'sample_parallel_2d serves the lattice regime '
-            f"(solver='stencil'); {type(sampler).__name__} with solver="
+            "sample_parallel_2d serves the lattice regime (solver="
+            "'stencil') and the graph regime (solver='graph') of "
+            'LogitICARGibbs and ProbitICARGibbs; '
+            f'{type(sampler).__name__} with solver='
             f'{getattr(sampler, "solver", None)!r} has no site-sharded '
-            f'step'
+            'step (the RSR samplers and the dense regimes are ROADMAP.md '
+            'item 15c)'
         )
     if getattr(sampler, 'pg_method', None) == 'gamma':
         raise NotImplementedError(
             "sample_parallel_2d draws Pólya-Gamma by Devroye's method; "
             "pg_method='gamma' has no lane table"
         )
+    if sampler.solver == 'graph':
+        check_bands(sampler.graph, n_site_shards)
+        return
     n, rows = sampler.n, sampler.lattice.rows
     if n % n_site_shards or rows % n_site_shards:
         raise ValueError(
@@ -335,9 +346,22 @@ def _check_chains(chains, n_chain_rows):
         )
 
 
+def _lattice_fixed(fixed, band):
+    """The lattice arrays of ``fixed`` as ``band`` holds them: the degree
+    grid's rows and the DCT columns of its rows."""
+    dense = torch.contiguous_format
+    out = dict(fixed)
+    out['lat_deg'] = fixed['lat_deg'][band.row0:band.row1].clone(
+        memory_format=dense)
+    out['lat_dct_r'] = fixed['lat_dct_r'][:, band.row0:band.row1].clone(
+        memory_format=dense)
+    return out
+
+
 def _band_view(sampler, band):
     """The sampler as band ``band`` runs it: the site-indexed fixed
-    arrays (:data:`_SITE_FIXED`) and the DCT columns of its rows, its
+    arrays (:data:`_SITE_FIXED`), its share of the regime's arrays (the
+    DCT columns of its rows, or :func:`.sharded_graph.band_fixed`), its
     visits and their layouts in band-local site indices, its draw plan
     (the field's words at its sites and edges) and the global lane of
     each column of its Pólya-Gamma draw (its sites, then its visits). The
@@ -346,12 +370,12 @@ def _band_view(sampler, band):
     out = copy.copy(sampler)
     sl, vs = slice(band.site0, band.site1), slice(band.visit0, band.visit1)
     dense = torch.contiguous_format
-    f = dict(sampler.fixed)
+    if isinstance(band, GraphBand):
+        f = band_fixed(sampler.graph, sampler.fixed, band)
+    else:
+        f = _lattice_fixed(sampler.fixed, band)
     for name in _SITE_FIXED:
-        part = sl if name != 'lat_deg' else slice(band.row0, band.row1)
-        f[name] = f[name][part].clone(memory_format=dense)
-    f['lat_dct_r'] = f['lat_dct_r'][:, band.row0:band.row1].clone(
-        memory_format=dense)
+        f[name] = f[name][sl].clone(memory_format=dense)
     for name in ('W_flat', 'y_flat'):
         f[name] = f[name][vs].clone(memory_format=dense)
     f['visit_site'] = f['visit_site'][vs] - band.site0
@@ -390,18 +414,27 @@ def shard_sampler_2d(sampler, carry, mesh):
     states (:data:`_SITE_STATE`, ``eta_warm``) cut to the band's sites.
     The carry part is ``(keys, states, step)``.
 
-    Serves the lattice regime of ``LogitICARGibbs`` and
-    ``ProbitICARGibbs``; the ``'sites'`` extent must divide the site
-    count and the lattice rows, the chain count the ``'chains'``
-    extent."""
+    Serves the lattice regime (``solver='stencil'``) and the graph regime
+    (``solver='graph'``) of ``LogitICARGibbs`` and ``ProbitICARGibbs``.
+    On a lattice, the ``'sites'`` extent must divide the site count and
+    the lattice rows. On a graph (the JAX layout), site rank s takes the
+    s-th contiguous run of sites in the original order and the s-th run
+    of the permuted, padded blocks of the banded layout, so the extent
+    must divide the site count and, banded, the block count ``n_pad /
+    block`` (the ELL layout, ``graph_block=0``, has no blocks). The chain
+    count must divide by the ``'chains'`` extent."""
     n_rows, n_sites = mesh.shape['chains'], mesh.shape['sites']
     _check_2d(sampler, n_sites)
     _check_chains(carry.keys.shape[0], n_rows)
     cpu = torch.device('cpu')
     shipped = sampler._moved(cpu)
     shipped.__dict__.pop('final_carry', None)
-    band_list = bands(shipped.lattice,
-                      np.asarray(shipped.data.visit_site), n_sites)
+    visit_site = np.asarray(shipped.data.visit_site)
+    if shipped.solver == 'graph':
+        band_list = graph_bands(shipped.graph, shipped.fixed, visit_site,
+                                n_sites)
+    else:
+        band_list = bands(shipped.lattice, visit_site, n_sites)
     views = [_band_view(shipped, b) for b in band_list]
     out = []
     for run in _chain_runs(_carry_to(carry, cpu), n_rows):
@@ -449,7 +482,11 @@ def _sample_band(sampler, carry, size, progress, timed):
     the collectives' seconds after the warm steps, as numpy."""
     device = _spmd.rank_device()
     sampler = sampler._moved(device)
-    ops = BandOps(sampler._band, _spmd.subgroup(), timed)
+    if isinstance(sampler._band, GraphBand):
+        ops = GraphBandOps(sampler._band, sampler.graph, _spmd.subgroup(),
+                           timed)
+    else:
+        ops = BandOps(sampler._band, _spmd.subgroup(), timed)
     sampler._band_ops, sampler._sites = ops, ops.sites
     keys, states, step = carry
     carry = _carry_to(Carry(keys, states, step), device)
@@ -492,18 +529,23 @@ def sample_parallel_2d(
 ):
     """Run ``sampler`` over a 2-D ('chains', 'sites') mesh
     (:func:`mesh_2d`): the chains split into ``mesh.shape['chains']``
-    runs, each run's sites into ``mesh.shape['sites']`` bands of lattice
-    rows, one rank per (run, band), joined in one process group with a
-    ``sites`` subgroup per chain row. Draws match the unsharded sampler up
-    to partitioned-reduction rounding (bit for bit on a 1 x 1 mesh).
+    runs, each run's sites into ``mesh.shape['sites']`` bands (lattice
+    rows, or on a graph a run of sites and a run of the banded layout's
+    blocks, :func:`shard_sampler_2d`), one rank per (run, band), joined in
+    one process group with a ``sites`` subgroup per chain row. Draws
+    match the unsharded sampler up to partitioned-reduction rounding (bit
+    for bit on a 1 x 1 mesh).
 
     The JAX ``sample_parallel_2d``'s arguments and errors: ``chains``
     defaults to the ``'chains'`` extent and must be a positive multiple
     of it; the ``'sites'`` extent must divide the site count and the
-    lattice rows. Serves the lattice regime (``solver='stencil'``) of
-    ``LogitICARGibbs`` and ``ProbitICARGibbs``; any other sampler or
-    regime raises ``NotImplementedError``. The carry and the cold-start
-    solver check are made once, here, by ``sampler.init_carry``.
+    lattice rows, or on a graph the site count and the banded layout's
+    block count (``... block count ...``). Serves the lattice
+    (``solver='stencil'``) and graph (``solver='graph'``, banded or ELL)
+    regimes of ``LogitICARGibbs`` and ``ProbitICARGibbs``; the RSR
+    samplers and the dense regimes raise ``NotImplementedError``, as does
+    ``pg_method='gamma'``. The carry and the cold-start solver check are
+    made once, here, by ``sampler.init_carry``.
 
     Returns a :class:`~..posterior.PosteriorParameter` in the chain order
     of one process; alpha, beta and tau come from site rank 0 of each
@@ -516,8 +558,11 @@ def sample_parallel_2d(
     to the wrappers' counts. ``timed=True`` also synchronises the card
     around every all-reduce of the ranks and sets
     ``sampler.rank_collectives``: per rank, label -> (seconds, calls)
-    over the steps after the first two, ``'dct'`` for the
-    preconditioner's coefficient field.
+    over the steps after the first two: ``'dct'`` for the lattice
+    preconditioner's coefficient field; on a graph ``'perm'`` for the
+    banded solve's moves to and from the block runs, ``'gather'`` for the
+    ELL matvec's field vector, ``'halo'`` for the block halos; ``'sum'``
+    for the other site sums.
     """
     n_rows, n_sites = mesh.shape['chains'], mesh.shape['sites']
     if chains is None:

@@ -320,7 +320,7 @@ class World:
         self.close()
 
 
-def exchange_halo(local, group=None):
+def exchange_halo(local, group=None, reduce=None):
     """The neighbours' boundary rows of a band split over the group's
     ranks: returns ``(top, bottom)``, the previous rank's last row and the
     next rank's first row along dimension -2 of ``local`` (..., rows_local,
@@ -329,7 +329,9 @@ def exchange_halo(local, group=None):
     One ``all_reduce``: each rank writes its first and last row into its
     own slot of a zero (world, 2, ..., width) buffer, and the sum over the
     ranks leaves every slot holding one rank's rows exactly (a sum with
-    zeros), the values ``lax.ppermute`` would deliver.
+    zeros), the values ``lax.ppermute`` would deliver. ``reduce`` (default
+    :func:`psum` over the group) sums the buffer in place and returns it
+    (a timed band passes its labelled sum).
     """
     rank = dist.get_rank(group)
     world = dist.get_world_size(group)
@@ -337,7 +339,7 @@ def exchange_halo(local, group=None):
     buf = local.new_zeros((world, 2) + tuple(first.shape))
     buf[rank, 0] = first
     buf[rank, 1] = last
-    dist.all_reduce(buf, group=group)
+    buf = psum(buf, group) if reduce is None else reduce(buf)
     zero = torch.zeros_like(first)
     top = buf[rank - 1, 1] if rank > 0 else zero
     bottom = buf[rank + 1, 0] if rank < world - 1 else zero

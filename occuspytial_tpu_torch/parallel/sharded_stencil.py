@@ -134,6 +134,11 @@ class Band:
     visit0: int
     visit1: int
 
+    def noise_index(self, spec):
+        """Indices in the ``noise`` layout of the standard normals its
+        rows need (:func:`..ops.stencil.noise_index`)."""
+        return stencil.noise_index(spec, self.row0, self.row1)
+
 
 def bands(spec, visit_site, extent):
     """The ``extent`` row bands of the lattice ``spec``, each with its

@@ -620,3 +620,39 @@ def test_sample_parallel_2d_gloo_on_one_card(dev):
         np.testing.assert_allclose(post[name], local[name], rtol=2e-3,
                                    atol=2e-4)
     np.testing.assert_allclose(post['tau'], local['tau'], rtol=2e-3)
+
+
+@pytest.mark.parametrize('block', [128, 0], ids=['banded', 'ell'])
+def test_graph_band_operators_on_the_card(dev, block):
+    """The graph band operators of the 2-D sampler (matvec, quad form,
+    noise, solve) in two gloo ranks on cuda:0 against the CPU field ops on
+    the same inputs, banded and ELL."""
+    import scipy.sparse as sps
+    from test_torch_parallel_2d_graph import band_ops_inputs, run_band_ops
+
+    from occuspytial_tpu_torch.models import etasetup
+    from occuspytial_tpu_torch.ops import graph as tgr
+    from occuspytial_tpu_torch.parallel._spmd import World
+
+    q = sps.csr_matrix(lattice_precision(16, 10, 8))
+    spec, arrays = etasetup.setup_graph(q, q.shape[0], 24, block)
+    inputs = band_ops_inputs(spec)
+    iters = 6
+    with World(2, ['cuda:0'] * 2) as w:
+        mv, qf, nz, sol = run_band_ops(w, spec, arrays, inputs, iters)
+    fixed = {k: torch.as_tensor(a) for k, a in arrays.items()}
+    v = torch.as_tensor(inputs['v'])
+    want = {
+        'matvec': tgr.matvec(spec, fixed, v).numpy(),
+        'quad_form': tgr.quad_form(spec, fixed, v).numpy(),
+        'noise': tgr.noise(spec, fixed,
+                           torch.as_tensor(inputs['eps'])).numpy(),
+        'cg_solve': tgr.cg_solve(
+            spec, fixed, *(torch.as_tensor(inputs[k])
+                           for k in ('rhs', 'x0', 'omega', 'tau')),
+            iters).numpy(),
+    }
+    for got, (name, ref) in zip((mv, qf, nz, sol), want.items()):
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max(),
+                                   err_msg=name)

@@ -292,12 +292,15 @@ def test_errors():
         sample_parallel_2d(s, 2, _mesh(1, 2), chains=0)
     with pytest.raises(ValueError, match='burnin'):
         sample_parallel_2d(s, 2, _mesh(1, 2), burnin=2)
+    # the graph regime runs (tests/test_torch_parallel_2d_graph.py); the
+    # RSR samplers and the dense regimes are ROADMAP item 15c
     graph = LogitICARGibbs(sps.csr_matrix(DATA[0]), *DATA[1:],
                            random_state=4, solver='graph', device='cpu')
+    assert len(shard_sampler_2d(graph, graph.init_carry(2),
+                                _mesh(1, 2))) == 2
     rsr = LogitRSRGibbs(*DATA, random_state=4, device='cpu')
-    for other in (graph, rsr):
-        with pytest.raises(NotImplementedError, match='item 15b'):
-            sample_parallel_2d(other, 2, _mesh(1, 2))
+    with pytest.raises(NotImplementedError, match='item 15c'):
+        sample_parallel_2d(rsr, 2, _mesh(1, 2))
     spectral = ProbitICARGibbs(*DATA, random_state=4, device='cpu')
     with pytest.raises(NotImplementedError, match='lattice regime'):
         sample_parallel_2d(spectral, 2, _mesh(1, 2))
