@@ -13,8 +13,9 @@ lattice (``solver='stencil'`` and ``'graph'``, 32 and 64 chains), then
 ``parallel.sample_parallel`` (the headline problem's chains over worker
 processes), the site-sharded lattice and graph solves over
 ``torch.distributed`` worlds (gloo ranks on one card, NCCL one rank per
-card) and ``parallel.sample_parallel_2d`` (both ICAR samplers' lattice
-and graph regimes over a chains x sites mesh of ranks), and prints one
+card) and ``parallel.sample_parallel_2d`` (over a chains x sites mesh
+of ranks: both ICAR samplers' lattice and graph regimes, then the dense
+regimes and the RSR samplers), and prints one
 JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero without
 that line; it also fails without CUDA. ``--stop-after N`` ends
@@ -69,6 +70,10 @@ GRAPH_BLOCK, GRAPH_RANK = 256, 512
 # (64 chains) in phase 14's 256-site tiles (10 blocks a rank: phase 11's
 # 128-site tiles give 79 blocks, which no 4-rank mesh divides)
 TWO_D_STEPS, TWO_D_SITES = 6, 4
+# phase 17: sample_parallel_2d for the dense regimes and the RSR samplers
+# at the widths of configs 4, 3, 2, 2b and 1 (config 1 runs one chain in
+# the bench: 4 here)
+DENSE_CHOL_CHAINS = 4
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
 #: op/s, dense TF32 tensor-core op/s
@@ -692,6 +697,226 @@ def two_d_phase(dev, card, counters, regime):
     return pg_a
 
 
+def dense_2d_phase(dev, card, counters, head, lattice):
+    """Phase 17: ``sample_parallel_2d`` for the dense eta regimes and the
+    RSR samplers, each case at the width of its bench configuration
+    (``head``: config 4's data, ``lattice``: configs 1, 2 and 2b's),
+    against a run of the same sampler and seed in one process. A case's
+    sampler is built once; each run takes a shallow copy of it, whose
+    cold-start solver check has not run. Every 2-D run is timed: the
+    card is synchronised around each all-reduce. Every chain is held to
+    one process within rtol 2e-3 / atol 2e-4 at every step, unless it
+    leaves that tolerance after an exact accept decision of K1 flipped
+    (:func:`flipped` inside: the rounding of the partitioned sums moved a
+    lane's input across a rejection boundary). Returns K1's and K3's
+    launches in (a)."""
+    import copy
+
+    import torch
+
+    from occuspytial_tpu_torch import (
+        LogitICARGibbs,
+        LogitRSRGibbs,
+        ProbitICARGibbs,
+        ProbitRSRGibbs,
+    )
+    from occuspytial_tpu_torch.ops.sites import lincomb
+    from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
+
+    t0 = phase(f'17 sample_parallel_2d: the dense regimes and the RSR '
+               f'samplers at their bench widths, {TWO_D_STEPS} steps, '
+               f'chains x sites meshes')
+    seed, lat_seed = HEAD['random_state'], LATTICE['seed']
+    # case: (sampler, data, seed, keywords, chains)
+    cases = {
+        'a': (LogitICARGibbs, head, seed, dict(cg_impl='pallas'), CHAINS),
+        'c': (LogitICARGibbs, head, seed, dict(cg_impl='xla'), CHAINS),
+        'd': (LogitRSRGibbs, head, seed, dict(q=RSR_Q), CHAINS),
+        'e': (ProbitICARGibbs, lattice, lat_seed, {}, PROBIT_ICAR_CHAINS),
+        'f': (ProbitRSRGibbs, lattice, lat_seed, {}, PROBIT_RSR_CHAINS),
+        'g': (LogitICARGibbs, lattice, lat_seed, {}, DENSE_CHOL_CHAINS),
+    }
+    built = {k: cls(*data, random_state=sd, device=dev, **kw)
+             for k, (cls, data, sd, kw, _) in cases.items()}
+    check(built['a'].solver == 'cg' and built['a'].cg_impl == 'pallas'
+          and built['c'].cg_impl == 'xla' and built['d'].q_dim == RSR_Q
+          and built['e'].solver == 'spectral'
+          and built['g'].solver == 'chol', 'unexpected phase 17 regimes')
+
+    ref, ref_ms, ref_carry = {}, {}, {}
+    for k, s0 in built.items():
+        # the field after each step: the input of the next step's K1
+        s0.track = ('spatial',)
+        s = copy.copy(s0)
+        s.init_carry(1)  # the cold-start check, outside the timing
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        ref[k] = s.sample(TWO_D_STEPS, chains=cases[k][4], progressbar=False)
+        torch.cuda.synchronize()
+        ref_ms[k] = 1e3 * (time.perf_counter() - ts) / TWO_D_STEPS
+        ref_carry[k] = s.final_carry
+
+    def run(k, mesh):
+        s = copy.copy(built[k])
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        post = sample_parallel_2d(s, TWO_D_STEPS, mesh, chains=cases[k][4],
+                                  timed=True)
+        launches = [c.launches for c in counters]
+        check_posterior(post, cases[k][4], TWO_D_STEPS,
+                        {'alpha': s.n_alpha, 'beta': s.n_beta, 'tau': 0})
+        check_state(s.final_carry)
+        if 'solver_resid' in s.final_carry.states:
+            check(s.last_solver_resid < s.solver_check_tol,
+                  f'17({k}) residual {s.last_solver_resid}')
+        return s, post, launches
+
+    def out_of_tolerance(post, want):
+        """(chains, steps) mask of the draws of alpha, beta or tau outside
+        rtol 2e-3 / atol 2e-4 (tau: rtol alone) of one process."""
+        bad = 0
+        for name in ('alpha', 'beta', 'tau'):
+            a, b = np.asarray(post[name]), np.asarray(want[name])
+            atol = 0.0 if name == 'tau' else 2e-4
+            out = np.abs(a - b) > atol + 2e-3 * np.abs(b)
+            bad = bad | (out if out.ndim == 2 else out.any(-1))
+        return bad
+
+    def flipped(s, post, want, c, upto):
+        """The first step t <= ``upto`` at which K1, given chain c's state
+        after step t - 1 from either run (inputs within the tolerance),
+        draws some lane out of the tolerance: an exact accept decision of
+        the rejection sampler that the rounding of the partitioned sums
+        flipped. None if there is none."""
+        x, w_flat = s.fixed['X'], s.fixed['W_flat']
+        keys = s.final_carry.keys[c:c + 1]
+        for t in range(1, upto + 1):
+            lins, omegas = [], []
+            for p in (post, want):
+                def prev(name, p=p):
+                    return torch.as_tensor(
+                        np.asarray(p[name])[c:c + 1, t - 1], device=dev)
+
+                lin = torch.cat([
+                    lincomb(prev('beta'), x.T) + prev('spatial'),
+                    lincomb(prev('alpha'), w_flat.T)], dim=-1)
+                lins.append(lin)
+                omegas.append(s._pg(s._plan(keys, t)[0], lin))
+            if (torch.allclose(*lins, rtol=2e-3, atol=2e-4)
+                    and not torch.allclose(*omegas, rtol=2e-3, atol=2e-4)):
+                return t
+        return None
+
+    def close(k, s, post, want):
+        """Max |diff| of alpha, beta and tau against one process over the
+        chains within the tolerance at every step, and the others: a
+        logit chain may leave it only after a K1 decision flipped
+        (:func:`flipped`), from which step on it runs another (equally
+        valid) path; any other departure fails."""
+        bad = out_of_tolerance(post, want)
+        diverged = {}
+        for c in np.nonzero(bad.any(axis=1))[0]:
+            first = int(np.argmax(bad[c]))
+            t = flipped(s, post, want, c, first) if hasattr(s, '_pg') \
+                else None
+            check(t is not None,
+                  f'17({k}) chain {c} leaves the tolerance of one process '
+                  f'at step {first} with no flipped K1 decision')
+            diverged[int(c)] = (t, first)
+        keep = ~bad.any(axis=1)
+        worst = max(float(np.abs(np.asarray(post[n])[keep]
+                                  - np.asarray(want[n])[keep]).max())
+                    for n in ('alpha', 'beta', 'tau'))
+        return worst, diverged
+
+    def steady(s):
+        """ms a step (steps 3 on, the slowest rank), the first step's
+        ms, and each all-reduce label's share of the steady steps."""
+        ms = 1e3 * max(float(np.mean(t[2:])) for t in s.rank_step_seconds)
+        cold = 1e3 * max(float(t[0]) for t in s.rank_step_seconds)
+        spent = [float(np.sum(t[2:])) for t in s.rank_step_seconds]
+        shares = {lab: max(c[lab][0] / t
+                           for c, t in zip(s.rank_collectives, spent))
+                  for lab in s.rank_collectives[0]}
+        calls = {lab: v[1] for lab, v in s.rank_collectives[0].items()}
+        return ms, cold, shares, calls
+
+    def show(k, label, s, post, launches, mesh):
+        diff, diverged = close(k, s, post, ref[k])
+        ms, cold, shares, calls = steady(s)
+        drift = ''
+        if not hasattr(s, 'q_dim'):  # an ICAR field (RSR: eta (chains, q))
+            d = plane_drift(s.final_carry.states['eta'])
+            check(d < 1e-4, f'17({k}) eta off the hyperplane: {d:.2e}')
+            drift = f', |sum eta| / sum |eta| {d:.2e}'
+        print(f'    ({k}) {label}, {mesh.shape}, {mesh.backend}: K1 '
+              f'{launches[0]}, K3 {launches[1]} launches; every site rank '
+              f'of a row holds the same alpha, beta and tau{drift}; max '
+              f'|diff| against one process {diff:.3e} (rtol 2e-3, atol '
+              f'2e-4) over {cases[k][4] - len(diverged)} of '
+              f'{cases[k][4]} chains'
+              + ''.join(f'; chain {c} leaves it at step {first} after a '
+                        f'flipped K1 decision at step {t}'
+                        for c, (t, first) in diverged.items()))
+        print(f'        ms a step ({card}), synchronised around each '
+              f'all-reduce: {ms:.3f} steady (steps 3-{TWO_D_STEPS}, the '
+              f'slowest rank), {cold:.1f} first; one process '
+              f'{ref_ms[k]:.3f} (its first step included); share of the '
+              f'steady steps: '
+              + ', '.join(f'{lab} {v:.3f} ({calls[lab]} calls)'
+                          for lab, v in sorted(shares.items()))
+              + f'; all {sum(shares.values()):.3f}')
+
+    gloo = mesh_2d(1, TWO_D_SITES, ['cuda:0'] * TWO_D_SITES)
+    check(gloo.backend == 'gloo', 'a mesh of ranks on one card is gloo')
+    steps = TWO_D_SITES * TWO_D_STEPS
+    # (a) the headline problem, K3 in every rank on its row's field
+    s, post, (pg_a, cg_a) = run('a', gloo)
+    check(pg_a == 1 + steps, f'17(a) K1 launches {pg_a} != {1 + steps}')
+    check(cg_a == 1 + 3 * steps,
+          f'17(a) K3 launches {cg_a} != {1 + 3 * steps}')
+    show('a', "LogitICARGibbs 'cg', cg_impl='pallas', config 4, "
+              f'{CHAINS} chains', s, post, (pg_a, cg_a), gloo)
+    # (b) one rank: the band is the field, under gloo and under NCCL
+    for mesh in (mesh_2d(1, 1, ['cuda:0'], backend='gloo'),
+                 mesh_2d(1, 1, ['cuda:0'])):
+        s_b, post_b, (pg_b, cg_b) = run('a', mesh)
+        check((pg_b, cg_b) == (1 + TWO_D_STEPS, 1 + 3 * TWO_D_STEPS),
+              f'17(b) launches {pg_b}, {cg_b}')
+        same = all(np.array_equal(post_b[k], ref['a'][k])
+                   for k in ('alpha', 'beta', 'tau'))
+        same = same and all(
+            torch.equal(s_b.final_carry.states[k], v)
+            for k, v in ref_carry['a'].states.items())
+        ms, _, shares, _ = steady(s_b)
+        print(f'    (b) the same, 1 x 1, {mesh.backend}: draws and final '
+              f'carry {"bit-identical" if same else "differ"} to one '
+              f'process; K1 {pg_b}, K3 {cg_b}; {ms:.3f} ms a step, '
+              f'all-reduces {sum(shares.values()):.3f} of it')
+        check(same, f'a 1 x 1 {mesh.backend} mesh differs from one process')
+    # (c)-(g) the torch-op CG, RSR, the probit samplers and Cholesky
+    labels = {
+        'c': (f"LogitICARGibbs 'cg', cg_impl='xla', config 4, {CHAINS} "
+              'chains', 1 + steps, 0),
+        'd': (f'LogitRSRGibbs q = {RSR_Q}, config 3, {CHAINS} chains',
+              steps, 0),
+        'e': ("ProbitICARGibbs 'spectral', config 2, "
+              f'{PROBIT_ICAR_CHAINS} chains', 0, 0),
+        'f': (f'ProbitRSRGibbs, config 2b, {PROBIT_RSR_CHAINS} chains',
+              0, 0),
+        'g': ("LogitICARGibbs 'chol', config 1, "
+              f'{DENSE_CHOL_CHAINS} chains', steps, 0),
+    }
+    for k, (label, want_pg, want_cg) in labels.items():
+        s, post, launches = run(k, gloo)
+        check(launches == [want_pg, want_cg],
+              f'17({k}) launches {launches} != {[want_pg, want_cg]}')
+        show(k, label, s, post, launches, gloo)
+    done(t0)
+    return pg_a, cg_a
+
+
 def large_n_phases(dev, kind, card, counters):
     """Phases 10-12: both ICAR samplers' matrix-free eta regimes on the
     10,000-site lattice of bench.py configs 5 and 5g. Returns K1's
@@ -814,7 +1039,7 @@ def large_n_phases(dev, kind, card, counters):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--stop-after', type=int, default=17)
+    ap.add_argument('--stop-after', type=int, default=18)
     args = ap.parse_args()
 
     import torch
@@ -1265,8 +1490,12 @@ def main():
     if args.stop_after < 16:
         return
     two_d_graph_pg = two_d_phase(dev, card, counters, 'graph')
+    if args.stop_after < 17:
+        return
+    dense_pg, dense_cg = dense_2d_phase(dev, card, counters, (Q, W, X, y),
+                                        (Q2, W2, X2, y2))
 
-    t0 = phase('17 report')
+    t0 = phase('18 report')
     # no single PyTorch call computes either function (a fixed-round
     # rejection sampler; a fixed-iteration PCG), so library_ms is null
     common = {'route': 'cuda', 'library_ms': None}
@@ -1279,7 +1508,7 @@ def main():
         launches_logit_stencil=large_launches['stencil'],
         launches_logit_graph=large_launches['graph'],
         launches_parallel=par_pg, launches_2d=two_d_pg,
-        launches_2d_graph=two_d_graph_pg,
+        launches_2d_graph=two_d_graph_pg, launches_2d_dense=dense_pg,
         max_abs_err=pg_err, mismatch_share=mismatch,
         ms=pg_ms, plain_ms=pg_plain_ms, bound_ms=pg_bound,
         bound_by='operations' if pg_ops / PEAK_F32 > pg_bytes / PEAK_BYTES
@@ -1289,7 +1518,8 @@ def main():
         common, name='icar_cg (K3 _cg_kernel)',
         source='occuspytial_tpu_torch/csrc/icar_cg.cu',
         replaces='occuspytial_tpu/ops/pallas_cg.py:56',
-        launches=cg_launches, launches_parallel=par_cg, max_abs_err=cg_err,
+        launches=cg_launches, launches_parallel=par_cg,
+        launches_2d_dense=dense_cg, max_abs_err=cg_err,
         ms=cg_ms,
         plain_ms=cg_plain_ms, bound_ms=cg_bound,
         bound_ms_is='3 TF32 operations per multiply-add at the tensor rate',

@@ -189,8 +189,11 @@ class GibbsBase:
 
     @property
     def _spec(self):
-        """The static spec those ops take: the lattice or the graph."""
-        return self.lattice if self.solver == 'stencil' else self.graph
+        """The static spec those ops take: the lattice or the graph (None
+        for a sampler with neither)."""
+        if getattr(self, 'solver', None) == 'stencil':
+            return self.lattice
+        return getattr(self, 'graph', None)
 
     def _verify_spatial_precision(self, Q):
         """Singularity check (reference gibbs/base.py:166-170). The graph

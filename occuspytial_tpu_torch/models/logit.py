@@ -219,7 +219,7 @@ class LogitICARGibbs(GibbsBase):
 
     def _pg(self, subkeys, z):
         if self.pg_method == 'gamma':
-            return pg_gamma(subkeys, z)
+            return pg_gamma(subkeys, z, lanes=self._pg_lanes)
         if self.pg_method in ('pallas', 'pallas_packed'):
             return pg_devroye_cuda(subkeys, z, self._pg_lanes)
         return pg_devroye(subkeys, z, self._pg_lanes)
@@ -248,7 +248,12 @@ class LogitICARGibbs(GibbsBase):
 
         Returns ``(sol, warm_next[, rel])``: the site-basis solutions, the
         carry for the next solve's warm start (eigenbasis for the CG) and
-        the per-chain relative residual (0 for the exact Cholesky)."""
+        the per-chain relative residual (0 for the exact Cholesky).
+
+        A band of a 2-D run in a dense regime gathers its chain row's
+        operands (:meth:`..ops.sites.Sites.gather`), makes the unchanged
+        solve on the whole field and keeps its band of the solutions and
+        of the warm start (a band of eigen-coefficients for the CG)."""
         if self._ops is not None:
             out = self._ops.cg_solve(
                 self._spec, fixed, rhs, warm, omega, tau, self.cg_iters,
@@ -257,16 +262,20 @@ class LogitICARGibbs(GibbsBase):
             if return_resid:
                 return out[0], out[0], out[1]
             return out, out
+        sites = self._sites
         if self.solver == 'cg':
             solve = (
                 icar_cg_solve_cuda if self.cg_impl == 'pallas'
                 else icar_cg_solve_spectral
             )
-            return solve(
+            rhs, warm, omega = sites.gather(rhs, warm, omega, label='field')
+            out = solve(
                 rhs, warm, omega, tau, fixed['q_eigvecs'],
                 fixed['q_eigvals'], self.cg_iters, return_resid=return_resid,
             )
-        sol = lambda_cholesky_solve(rhs, omega, tau, fixed['Q'])
+            return (sites.band(out[0]), sites.band(out[1])) + out[2:]
+        rhs, omega = sites.gather(rhs, omega, label='field')
+        sol = sites.band(lambda_cholesky_solve(rhs, omega, tau, fixed['Q']))
         if return_resid:
             return sol, sol, torch.zeros_like(tau)
         return sol, sol
@@ -274,7 +283,7 @@ class LogitICARGibbs(GibbsBase):
     def _lambda_noise(self, eps, tau, fixed):
         """sqrt(tau) * B eps with B B' = Q; ``eps`` (chains, n - 1), or
         for a matrix-free regime (chains, noise_dim) in its op module's
-        layout."""
+        layout. A band of a 2-D run holds its sites' rows of B."""
         if self._ops is not None:
             return torch.sqrt(tau)[:, None] * self._ops.noise(
                 self._spec, fixed, eps
@@ -350,27 +359,34 @@ class LogitICARGibbs(GibbsBase):
     def _band_tables(self, band):
         """:class:`..rng.DrawPlan` word tables of a band of a 2-D run
         (:class:`..parallel.sharded_stencil.Band` on a lattice,
-        :class:`..parallel.sharded_graph.GraphBand` on a graph): the
+        :class:`..parallel.sharded_graph.GraphBand` on a graph,
+        :class:`..parallel.sharded_dense.SiteBand` otherwise): the
         field's draws at the band's sites and at the field noise's
         normals its sites need (the edges that touch them, then any
         site normals), so the band draws the words the whole field gives
-        them; the per-chain draws stay whole."""
+        them; the per-chain draws stay whole, and so does a field noise
+        that no site indexes (the dense regimes' n - 1 normals of B eps,
+        RSR's q normals)."""
         sites = torch.arange(band.site0, band.site1)
-        noise = rng.normal_words(band.noise_index(self._spec))
+        noise = band.noise_index(self._spec)
         tables = {self._z_update: sites}
         for i in range(self.spatial_sweeps):
             base = 1 + _SWEEP_UPDATES * i
             tables[base + _EPS1] = rng.normal_words(sites)
-            tables[base + _NOISE] = noise
+            if noise is not None:
+                tables[base + _NOISE] = rng.normal_words(noise)
         return tables
 
     # -------------------------- update segments ----------------------- #
 
     def _eta_quad(self, eta, fixed):
-        """eta' Q eta per chain."""
+        """eta' Q eta per chain (a band of a 2-D run in a dense regime:
+        its sites' terms of the gathered field's product, summed)."""
         if self._ops is not None:
             return self._ops.quad_form(self._spec, fixed, eta)
-        return self._sites.sum(eta * (eta @ fixed['Q']), dim=-1)
+        sites = self._sites
+        [field] = sites.gather(eta, label='field')
+        return sites.sum(eta * sites.band(field @ fixed['Q']), dim=-1)
 
     def _update_tau(self, eta, fixed, g):
         """tau ~ Gamma(shape, 0.5 eta'Q eta + rate) given ``g`` ~
@@ -641,9 +657,9 @@ class LogitRSRGibbs(LogitICARGibbs):
         """Reduced-basis eta draw (reference gibbs/logit.py:478-485);
         ``eps1`` (chains, n) and ``eps2`` (chains, q) standard normals."""
         xb = lincomb(state['beta'], fixed['X'].T)
-        b = (state['k'] - omega_b * xb) @ fixed['K']
+        b = self._sites.contract(state['k'] - omega_b * xb, fixed['K'])
         eta = rsr_mvnorm(
             b, omega_b, tau, fixed['Q_rsr'], fixed['K'],
-            fixed['sqrt_factor'], eps1, eps2,
+            fixed['sqrt_factor'], eps1, eps2, sites=self._sites,
         )
         return eta, eta @ fixed['K'].T

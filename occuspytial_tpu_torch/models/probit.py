@@ -128,6 +128,29 @@ class _ProbitBase(GibbsBase):
     def _eta_quad(self, eta, fixed):
         raise NotImplementedError
 
+    def _band_tables(self, band):
+        """:class:`..rng.DrawPlan` word tables of a band of a 2-D run (a
+        lattice, graph or dense band): the utilities, eps, z and the eta
+        draw's site and field-noise normals at the band's sites and edges,
+        the visit utilities at its visits; the per-chain draws stay whole,
+        as do the eta draw's normals where no site indexes them (the
+        spectral draw's n mode normals, RSR's q; see
+        :meth:`.logit.LogitICARGibbs._band_tables`)."""
+        sites = torch.arange(band.site0, band.site1)
+        noise = band.noise_index(self._spec)
+        tables = {
+            _OMEGA_B: sites,
+            self._omega_a_update: torch.arange(band.visit0, band.visit1),
+            self._z_update: sites,
+        }
+        for i in range(self.spatial_sweeps):
+            base = 2 + _SWEEP_UPDATES * i
+            if noise is not None:
+                tables[base + _ETA] = rng.normal_words(torch.cat(
+                    [sites, self._field_n + torch.as_tensor(noise)]))
+            tables[base + _EPS] = rng.normal_words(sites)
+        return tables
+
     def _init_state(self, keys, fixed):
         """The common start plus eps ~ N(0, 1) and zero utilities."""
         state = self._init_common(keys, fixed)
@@ -417,9 +440,10 @@ class ProbitRSRGibbs(_ProbitBase):
         """eta with precision K'K + tau Q_rsr (reference
         gibbs/probit.py:223-229)."""
         a = fixed['KTK'] + tau[:, None, None] * fixed['Q_rsr']
-        b = (
-            omega_b - lincomb(state['beta'], fixed['X'].T) - state['eps']
-        ) @ fixed['K']
+        b = self._sites.contract(
+            omega_b - lincomb(state['beta'], fixed['X'].T) - state['eps'],
+            fixed['K'],
+        )
         eta = precision_mvnorm(b, a, eps)
         return eta, eta @ fixed['K'].T
 
@@ -440,15 +464,15 @@ class ProbitRSRGibbs(_ProbitBase):
             chol = self._collapsed_factor(tau, fixed)
         ktx = fixed['KTX']  # (q, p)
         sol_x = cholesky_solve(ktx, chol)
-        sol_u = cholesky_solve((omega_b @ fixed['K'])[..., None], chol)[
-            ..., 0
-        ]
+        sites = self._sites
+        sol_u = cholesky_solve(
+            sites.contract(omega_b, fixed['K'])[..., None], chol)[..., 0]
         a_beta = (
             0.5 * fixed['XTX'] + fixed['b_prec'] - 0.25 * (ktx.T @ sol_x)
         )
         b_beta = (
-            0.5 * (omega_b @ fixed['X']) - 0.25 * (sol_u @ ktx)
-            + fixed['b_prec_by_mu']
+            0.5 * sites.contract(omega_b, fixed['X'])
+            - 0.25 * (sol_u @ ktx) + fixed['b_prec_by_mu']
         )
         return precision_mvnorm(
             b_beta, 0.5 * (a_beta + a_beta.transpose(-1, -2)), eps
@@ -459,8 +483,8 @@ class ProbitRSRGibbs(_ProbitBase):
         """eta | u, beta with eps integrated out: precision A."""
         if chol is None:
             chol = self._collapsed_factor(tau, fixed)
-        b = 0.5 * (
-            (omega_b - lincomb(state['beta'], fixed['X'].T)) @ fixed['K']
+        b = 0.5 * self._sites.contract(
+            omega_b - lincomb(state['beta'], fixed['X'].T), fixed['K']
         )
         eta = precision_mvnorm(b, None, eps, chol=chol)
         return eta, eta @ fixed['K'].T
@@ -557,32 +581,13 @@ class ProbitICARGibbs(_ProbitBase):
             return self.n
         return self.n + self._ops.noise_dim(self._spec)
 
-    def _band_tables(self, band):
-        """:class:`..rng.DrawPlan` word tables of a band of a 2-D run (a
-        lattice or a graph band): the utilities, eps, z and the eta draw's
-        site and field-noise normals at the band's sites and edges, the
-        visit utilities at its visits; the per-chain draws stay whole (see
-        :meth:`.logit.LogitICARGibbs._band_tables`)."""
-        sites = torch.arange(band.site0, band.site1)
-        edges = torch.as_tensor(band.noise_index(self._spec))
-        tables = {
-            _OMEGA_B: sites,
-            self._omega_a_update: torch.arange(band.visit0, band.visit1),
-            self._z_update: sites,
-        }
-        for i in range(self.spatial_sweeps):
-            base = 2 + _SWEEP_UPDATES * i
-            tables[base + _ETA] = rng.normal_words(
-                torch.cat([sites, self._field_n + edges])
-            )
-            tables[base + _EPS] = rng.normal_words(sites)
-        return tables
-
     def _eta_quad(self, eta, fixed):
+        sites = self._sites
         if self._ops is not None:
             quad = self._ops.quad_form(self._spec, fixed, eta)
         else:
-            quad = self._sites.sum(eta * (eta @ fixed['Q']), dim=-1)
+            [field] = sites.gather(eta, label='field')
+            quad = sites.sum(eta * sites.band(field @ fixed['Q']), dim=-1)
         return torch.clamp(quad, min=0.0)
 
     def _init_state(self, keys, fixed):
@@ -607,7 +612,8 @@ class ProbitICARGibbs(_ProbitBase):
         b = omega_b - lincomb(state['beta'], fixed['X'].T) - state['eps']
         if self._ops is None:
             eta = constrained_icar_mvnorm_unit(
-                b, tau, fixed['q_eigvecs'], fixed['q_eigvals'], eps
+                b, tau, fixed['q_eigvecs'], fixed['q_eigvals'], eps,
+                sites=self._sites,
             )
             return eta, eta
         eta, warm, rel = self._ops.constrained_mvnorm(
@@ -690,7 +696,7 @@ class ProbitICARGibbs(_ProbitBase):
         )
         w = 1.0 / var_u
         ux = fixed['UX']  # (n, p)
-        uu = omega_b @ fixed['q_eigvecs']  # U'u
+        uu = self._sites.contract(omega_b, fixed['q_eigvecs'])  # U'u
         a = ux.T @ (w[..., None] * ux) + fixed['b_prec']
         b = (w * uu) @ ux + fixed['b_prec_by_mu']
         return precision_mvnorm(b, a, eps)
@@ -702,7 +708,8 @@ class ProbitICARGibbs(_ProbitBase):
         null coordinate zeroed."""
         b = 0.5 * (omega_b - lincomb(state['beta'], fixed['X'].T))
         d = tau[:, None] * fixed['q_eigvals'] + 0.5
-        coef = (b @ fixed['q_eigvecs']) / d + eps / torch.sqrt(d)
+        coef = self._sites.contract(b, fixed['q_eigvecs']) / d \
+            + eps / torch.sqrt(d)
         coef = torch.where(fixed['eig_mask'], coef, torch.zeros_like(coef))
         eta = coef @ fixed['q_eigvecs'].T
         return eta, eta

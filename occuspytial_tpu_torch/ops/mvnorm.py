@@ -165,27 +165,29 @@ def constrained_icar_mvnorm_cg(b, omega, tau, q_dense, sqrt_factor,
 
 
 def constrained_icar_mvnorm_unit(b, tau, eigvecs, eigvals, eps=None,
-                                 generator=None):
+                                 generator=None, sites=LOCAL):
     """The constrained draw for unit noise, ``Lambda = tau*Q + I`` (the
     probit ICAR eta conditional): Lambda is diagonal in Q's eigenbasis
     U, so with ``d = tau*s + 1``
 
         y' = U'b + sqrt(d) eps,  x = U (y' / d),  z = U (U'1 / d),
 
-    then the kriging projection. ``b`` and ``eps`` (chains, n), ``tau``
-    (chains,)."""
-    eps = _normals(eps, b.shape, b, generator)
+    then the kriging projection. ``b`` (chains, n) and ``eps`` (chains,
+    n modes), ``tau`` (chains,). The contractions over the sites go
+    through ``sites``: a band of a 2-D run holds its sites of ``b`` and
+    its rows of ``eigvecs`` and draws its sites of eta."""
+    eps = _normals(eps, b.shape[:-1] + eigvals.shape, b, generator)
     t = torch.as_tensor(tau, dtype=b.dtype, device=b.device)
     d = t[..., None] * eigvals + 1.0
-    y_spec = b @ eigvecs + torch.sqrt(d) * eps
+    y_spec = sites.contract(b, eigvecs) + torch.sqrt(d) * eps
     x = (y_spec / d) @ eigvecs.T
-    ones_spec = torch.sum(eigvecs, dim=0)  # U'1
+    ones_spec = sites.sum(eigvecs, dim=0)  # U'1
     z = (ones_spec / d) @ eigvecs.T
-    return sum_to_zero(x, z)
+    return sum_to_zero(x, z, sites)
 
 
 def rsr_mvnorm(b, omega, tau, q_rsr, k_basis, sqrt_factor, eps1=None,
-               eps2=None, generator=None):
+               eps2=None, generator=None, sites=LOCAL):
     """Draw the RSR eta (chains, q) from N(Lambda^{-1} b, Lambda^{-1}),
     ``Lambda = tau*Q_rsr + K' diag(omega) K`` with K the (n, q) Moran
     basis and ``sqrt_factor`` E (q, q), E E' = Q_rsr (reference
@@ -195,16 +197,18 @@ def rsr_mvnorm(b, omega, tau, q_rsr, k_basis, sqrt_factor, eps1=None,
 
     then one batched Cholesky solve. ``eps1`` (chains, n), ``eps2``
     (chains, q). The K' diag(omega) K contraction is a float32 product
-    (the port keeps TF32 off on the card)."""
+    (the port keeps TF32 off on the card). The contractions over the
+    sites go through ``sites`` (a band of a 2-D run holds its sites of
+    ``omega`` and ``eps1`` and its rows of K)."""
     eps1 = _normals(eps1, omega.shape, b, generator)
     eps2 = _normals(eps2, b.shape, b, generator)
     t = torch.as_tensor(tau, dtype=b.dtype, device=b.device)
     y = (
-        b + (torch.sqrt(omega) * eps1) @ k_basis
+        b + sites.contract(torch.sqrt(omega) * eps1, k_basis)
         + torch.sqrt(t)[..., None] * (eps2 @ sqrt_factor.T)
     )
-    lam = t[..., None, None] * q_rsr + (
-        k_basis.T * omega[..., None, :]
-    ) @ k_basis
+    lam = t[..., None, None] * q_rsr + sites.contract(
+        k_basis.T * omega[..., None, :], k_basis
+    )
     chol = torch.linalg.cholesky_ex(lam).L
     return cholesky_solve(y[..., None], chol)[..., 0]

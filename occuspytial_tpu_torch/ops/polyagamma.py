@@ -211,14 +211,20 @@ def pg_devroye(subkeys, z, lanes=None):
     )
 
 
-def pg_gamma(subkeys, z, trunc=64):
+def pg_gamma(subkeys, z, trunc=64, lanes=None):
     """PG(1, z) via the truncated sum-of-gammas series plus the exact
-    tail mean (fixed work, no rejection)."""
+    tail mean (fixed work, no rejection). Column j draws words ``j * trunc
+    + t``; with ``lanes`` (m,) int64, words ``lanes[j] * trunc + t`` (a
+    band of a 2-D run draws its global lanes, as :func:`pg_devroye`)."""
     chains, m = z.shape
     a = torch.abs(z) / (2.0 * math.pi)
     k_idx = torch.arange(1, trunc + 1, dtype=z.dtype, device=z.device)
     denom = (k_idx - 0.5) ** 2 + a[..., None] ** 2
-    w = rng.words(subkeys, 0, 0, m * trunc).reshape(chains, m, trunc)
+    if lanes is None:
+        w = rng.words(subkeys, 0, 0, m * trunc)
+    else:
+        w = rng.lane_words(subkeys, 0, 0, lanes, trunc)
+    w = w.reshape(chains, m, trunc)
     g = -torch.log(rng.uniform(w, z.dtype))
     series = torch.sum(g / denom, dim=-1)
     a_safe = torch.clamp(a, min=1e-12)

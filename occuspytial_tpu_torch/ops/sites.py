@@ -7,7 +7,9 @@ product), so the bits do not change. A band of a 2-D (chains x sites)
 run holds a subclass whose :meth:`Sites.psum` sums the band's partial
 results over its ``sites`` process group
 (:class:`..parallel.sharded_stencil.BandSites`), the counterpart of the
-psums GSPMD inserts into the JAX package's partitioned step.
+psums GSPMD inserts into the JAX package's partitioned step. A dense
+solve needs the whole field: :meth:`Sites.gather` and :meth:`Sites.band`
+move between a band and the field, and are the identity here.
 """
 
 import torch
@@ -28,6 +30,18 @@ class Sites:
     def contract(self, a, b):
         """``a @ b`` contracting over the sites (a's last dimension)."""
         return self.psum(a @ b)
+
+    def gather(self, *xs, label=None):
+        """The whole fields (..., n) of which ``xs`` (each (..., sites))
+        are this process's bands: ``xs`` themselves here. A band of a 2-D
+        run gathers them in one all-reduce
+        (:class:`..parallel.sharded_stencil.BandSites`)."""
+        return xs
+
+    def band(self, x):
+        """This process's band (..., sites) of a whole field ``x`` (...,
+        n): ``x`` itself here."""
+        return x
 
 
 #: the reductions of a sampler that holds the whole field

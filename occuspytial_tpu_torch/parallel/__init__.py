@@ -18,16 +18,17 @@ The site-sharded solves of the lattice and graph regimes are in
 :mod:`.sharded_stencil` and :mod:`.sharded_graph`.
 
 :func:`sample_parallel_2d` adds the JAX package's second mesh axis,
-``'sites'``, for the lattice and the graph regimes: every rank of a
-(chains x sites) grid runs the sampler's own step on its chain run and
-its band of sites (:func:`shard_sampler_2d`: lattice rows, or a run of
-the graph's sites in the original order with a run of its permuted
-blocks), drawing the words the whole field gives its sites, and sums
-every reduction over the sites through its chain row's process group.
-The JAX package partitions the unchanged compiled step with GSPMD; no
-partitioner reaches into this port's kernels, so the band step is
-written out (:class:`.sharded_stencil.BandOps`,
-:class:`.sharded_graph.GraphBandOps`, the samplers' ``_sites`` hook).
+``'sites'``, for every sampler and eta regime: every rank of a (chains x
+sites) grid runs the sampler's own step on its chain run and its band of
+sites (:func:`shard_sampler_2d`: lattice rows; a run of the graph's
+sites in the original order with a run of its permuted blocks; else a
+contiguous run of sites), drawing the words the whole field gives its
+sites, and sums every reduction over the sites through its chain row's
+process group. The JAX package partitions the unchanged compiled step
+with GSPMD; no partitioner reaches into this port's kernels, so the band
+step is written out (:class:`.sharded_stencil.BandOps`,
+:class:`.sharded_graph.GraphBandOps`, :mod:`.sharded_dense`, the
+samplers' ``_sites`` hook).
 """
 
 import copy
@@ -45,6 +46,8 @@ from ..ops.cuda_pg import pg_devroye_cuda
 from ..posterior import PosteriorParameter
 from . import _spmd
 from ._spmd import World, Workers
+from .sharded_dense import SiteBand, check_extent, site_bands
+from .sharded_dense import band_fixed as dense_band_fixed
 from .sharded_graph import (
     GraphBand,
     GraphBandOps,
@@ -52,7 +55,7 @@ from .sharded_graph import (
     check_bands,
     graph_bands,
 )
-from .sharded_stencil import BandOps, bands
+from .sharded_stencil import BandOps, BandSites, bands
 
 #: the kernel wrappers whose launches the workers report to the parent
 _COUNTERS = (pg_devroye_cuda, icar_cg_solve_cuda)
@@ -242,10 +245,11 @@ def sample_parallel(
 # ----------------------- the 2-D (chains x sites) run ------------------- #
 
 #: fixed-model arrays whose leading axis is the site axis (the regimes'
-#: arrays are cut by :func:`_lattice_fixed` and
-#: :func:`.sharded_graph.band_fixed`)
+#: arrays are cut by :func:`_lattice_fixed`,
+#: :func:`.sharded_graph.band_fixed` and :func:`.sharded_dense.band_fixed`)
 _SITE_FIXED = ('X', 'obs', 'surveyed')
-#: state entries laid out (chains, n_sites)
+#: state entries laid out (chains, n_sites) (but not the RSR samplers'
+#: eta, see :func:`_site_states`)
 _SITE_STATE = ('z', 'k', 'eta', 'spatial', 'eps', 'omega_b')
 
 
@@ -300,33 +304,57 @@ def mesh_2d(chains=1, sites=None, devices=None, backend=None):
     return Mesh2D(rows, backend)
 
 
-def _check_2d(sampler, n_site_shards):
-    """Raise unless the port has a site-sharded step for ``sampler`` and
-    the mesh's ``'sites'`` extent splits its field: the site count and
-    the lattice rows, or on a graph the site count and (banded) the
-    block count."""
-    from ..models.logit import LogitICARGibbs, LogitRSRGibbs
-    from ..models.probit import ProbitICARGibbs
+def _is_rsr(sampler):
+    from ..models.logit import LogitRSRGibbs
+    from ..models.probit import ProbitRSRGibbs
 
-    if (not isinstance(sampler, (LogitICARGibbs, ProbitICARGibbs))
-            or isinstance(sampler, LogitRSRGibbs)
-            or sampler.solver not in ('stencil', 'graph')):
-        raise NotImplementedError(
-            "sample_parallel_2d serves the lattice regime (solver="
-            "'stencil') and the graph regime (solver='graph') of "
-            'LogitICARGibbs and ProbitICARGibbs; '
-            f'{type(sampler).__name__} with solver='
-            f'{getattr(sampler, "solver", None)!r} has no site-sharded '
-            'step (the RSR samplers and the dense regimes are ROADMAP.md '
-            'item 15c)'
-        )
-    if getattr(sampler, 'pg_method', None) == 'gamma':
-        raise NotImplementedError(
-            "sample_parallel_2d draws Pólya-Gamma by Devroye's method; "
-            "pg_method='gamma' has no lane table"
-        )
-    if sampler.solver == 'graph':
+    return isinstance(sampler, (LogitRSRGibbs, ProbitRSRGibbs))
+
+
+def _regime(sampler):
+    """How a 2-D run bands ``sampler``'s sites: ``'stencil'`` (lattice
+    rows), ``'graph'`` (a run of sites and a run of blocks), else
+    ``'dense'`` (a run of sites: the dense eta regimes, and the RSR
+    samplers, which take a ``solver`` and never use it)."""
+    if not _is_rsr(sampler) and sampler.solver in ('stencil', 'graph'):
+        return sampler.solver
+    return 'dense'
+
+
+def _dense_rows(sampler):
+    """The fixed arrays of a ``'dense'`` sampler whose rows are the
+    sites, each used only to multiply a site field in or out: the Moran
+    basis K (RSR), the spectral eigenbasis U, else the ICAR noise factor
+    B (``'chol'``, ``'cg'``; the CG's eigenbasis is the solve's, which
+    runs on the whole field)."""
+    if _is_rsr(sampler):
+        return ('K',)
+    if sampler.solver == 'spectral':
+        return ('q_eigvecs',)
+    return ('sqrt_factor',)
+
+
+def _site_states(sampler):
+    """Names of the carry entries laid out (chains, ..., n sites): the
+    :data:`_SITE_STATE` entries and ``eta_warm`` (a band of
+    eigen-coefficients for the CG, as in the JAX layout), but not the
+    RSR samplers' eta, (chains, q) in the Moran basis."""
+    names = set(_SITE_STATE) | {'eta_warm'}
+    if _is_rsr(sampler):
+        names.discard('eta')
+    return names
+
+
+def _check_2d(sampler, n_site_shards):
+    """Raise unless the mesh's ``'sites'`` extent splits the sampler's
+    field: the site count and the lattice rows, on a graph the site
+    count and (banded) the block count, else the site count."""
+    regime = _regime(sampler)
+    if regime == 'graph':
         check_bands(sampler.graph, n_site_shards)
+        return
+    if regime == 'dense':
+        check_extent(sampler.n, n_site_shards)
         return
     n, rows = sampler.n, sampler.lattice.rows
     if n % n_site_shards or rows % n_site_shards:
@@ -361,7 +389,8 @@ def _lattice_fixed(fixed, band):
 def _band_view(sampler, band):
     """The sampler as band ``band`` runs it: the site-indexed fixed
     arrays (:data:`_SITE_FIXED`), its share of the regime's arrays (the
-    DCT columns of its rows, or :func:`.sharded_graph.band_fixed`), its
+    DCT columns of its rows, :func:`.sharded_graph.band_fixed`, or the
+    site rows of :func:`_dense_rows`), its
     visits and their layouts in band-local site indices, its draw plan
     (the field's words at its sites and edges) and the global lane of
     each column of its Pólya-Gamma draw (its sites, then its visits). The
@@ -372,6 +401,8 @@ def _band_view(sampler, band):
     dense = torch.contiguous_format
     if isinstance(band, GraphBand):
         f = band_fixed(sampler.graph, sampler.fixed, band)
+    elif isinstance(band, SiteBand):
+        f = dense_band_fixed(sampler.fixed, band, _dense_rows(sampler))
     else:
         f = _lattice_fixed(sampler.fixed, band)
     for name in _SITE_FIXED:
@@ -398,31 +429,31 @@ def _band_view(sampler, band):
     return out
 
 
-def _site_sized(name, value, n):
-    return (name == 'eta_warm'
-            or (name in _SITE_STATE and value.ndim >= 2
-                and value.shape[-1] == n))
-
-
 def shard_sampler_2d(sampler, carry, mesh):
     """Lay a sampler and its carry out over a 2-D ('chains', 'sites')
     mesh (the JAX ``shard_sampler_2d``'s layout): returns one
     ``(band sampler, carry part)`` pair per rank, row-major. Chain row c
     takes the c-th contiguous run of chains; site rank s of a row takes
-    the s-th band of lattice rows: the band view of the sampler (on the
-    CPU, without its group) and the run's carry with its site-sized
-    states (:data:`_SITE_STATE`, ``eta_warm``) cut to the band's sites.
-    The carry part is ``(keys, states, step)``.
+    the s-th band of sites: the band view of the sampler (on the CPU,
+    without its group) and the run's carry with its site-sized states
+    (:func:`_site_states`) cut to the band's sites. The carry part is
+    ``(keys, states, step)``.
 
-    Serves the lattice regime (``solver='stencil'``) and the graph regime
-    (``solver='graph'``) of ``LogitICARGibbs`` and ``ProbitICARGibbs``.
-    On a lattice, the ``'sites'`` extent must divide the site count and
-    the lattice rows. On a graph (the JAX layout), site rank s takes the
-    s-th contiguous run of sites in the original order and the s-th run
-    of the permuted, padded blocks of the banded layout, so the extent
-    must divide the site count and, banded, the block count ``n_pad /
-    block`` (the ELL layout, ``graph_block=0``, has no blocks). The chain
-    count must divide by the ``'chains'`` extent."""
+    Serves every sampler and eta regime. On a lattice
+    (``solver='stencil'``) a band is a run of lattice rows, and the
+    ``'sites'`` extent must divide the site count and the lattice rows.
+    On a graph (the JAX layout), site rank s takes the s-th contiguous
+    run of sites in the original order and the s-th run of the permuted,
+    padded blocks of the banded layout, so the extent must divide the
+    site count and, banded, the block count ``n_pad / block`` (the ELL
+    layout, ``graph_block=0``, has no blocks). Otherwise (the dense
+    regimes ``'chol'``, ``'cg'`` and ``'spectral'``, and the RSR
+    samplers) site rank s takes the s-th contiguous run of sites and its
+    rows of the dense operators that only carry a site field in or out
+    (:func:`_dense_rows`); Q, the CG's eigenbasis and the q-space
+    products stay whole, as the JAX layout keeps them replicated; the
+    extent must divide the site count. The chain count must divide by
+    the ``'chains'`` extent."""
     n_rows, n_sites = mesh.shape['chains'], mesh.shape['sites']
     _check_2d(sampler, n_sites)
     _check_chains(carry.keys.shape[0], n_rows)
@@ -430,18 +461,22 @@ def shard_sampler_2d(sampler, carry, mesh):
     shipped = sampler._moved(cpu)
     shipped.__dict__.pop('final_carry', None)
     visit_site = np.asarray(shipped.data.visit_site)
-    if shipped.solver == 'graph':
+    regime = _regime(shipped)
+    if regime == 'graph':
         band_list = graph_bands(shipped.graph, shipped.fixed, visit_site,
                                 n_sites)
-    else:
+    elif regime == 'stencil':
         band_list = bands(shipped.lattice, visit_site, n_sites)
+    else:
+        band_list = site_bands(shipped.n, visit_site, n_sites)
     views = [_band_view(shipped, b) for b in band_list]
+    cut = _site_states(shipped)
     out = []
     for run in _chain_runs(_carry_to(carry, cpu), n_rows):
         for band, view in zip(band_list, views):
             states = {
                 name: (v[..., band.site0:band.site1]
-                       if _site_sized(name, v, sampler.n) else v).clone()
+                       if name in cut else v).clone()
                 for name, v in run.states.items()
             }
             out.append((view, (run.keys.clone(), states, run.step)))
@@ -476,22 +511,28 @@ class _StepClock:
 
 def _sample_band(sampler, carry, size, progress, timed):
     """Rank body of :func:`sample_parallel_2d`: attach the band's
-    operators and site hook (its chain row's group) to the band sampler,
-    run ``size`` steps from its carry part, and return the draws, the
-    final carry, the kernel launches, each step's seconds and (timed)
-    the collectives' seconds after the warm steps, as numpy."""
+    operators (a lattice or a graph) and its site hook (its chain row's
+    group) to the band sampler, run ``size`` steps from its carry part,
+    and return the draws, the final carry, the kernel launches, each
+    step's seconds and (timed) the collectives' seconds after the warm
+    steps, as numpy."""
     device = _spmd.rank_device()
     sampler = sampler._moved(device)
-    if isinstance(sampler._band, GraphBand):
-        ops = GraphBandOps(sampler._band, sampler.graph, _spmd.subgroup(),
-                           timed)
+    band, group = sampler._band, _spmd.subgroup()
+    if isinstance(band, SiteBand):
+        sites = BandSites(group, timed, slice(band.site0, band.site1),
+                          sampler._field_n)
     else:
-        ops = BandOps(sampler._band, _spmd.subgroup(), timed)
-    sampler._band_ops, sampler._sites = ops, ops.sites
+        if isinstance(band, GraphBand):
+            ops = GraphBandOps(band, sampler.graph, group, timed)
+        else:
+            ops = BandOps(band, group, timed)
+        sampler._band_ops, sites = ops, ops.sites
+    sampler._sites = sites
     keys, states, step = carry
     carry = _carry_to(Carry(keys, states, step), device)
     before = [c.launches for c in _COUNTERS]
-    clock = _StepClock(device, ops.sites)
+    clock = _StepClock(device, sites)
     bars = [clock] + ([_Progress(_spmd.rank_conn())] if progress else [])
     carry, out = sampler._run(carry, size, bars)
     step_seconds = np.diff(clock.times)
@@ -502,17 +543,18 @@ def _sample_band(sampler, carry, size, progress, timed):
         'step': carry.step,
         'launches': [c.launches - b for c, b in zip(_COUNTERS, before)],
         'step_seconds': step_seconds,
-        'collective_seconds': dict(ops.sites.seconds),
-        'collective_calls': dict(ops.sites.calls),
+        'collective_seconds': dict(sites.seconds),
+        'collective_calls': dict(sites.calls),
     }
 
 
-def _gather_row(row, name, n_band, key):
-    """One chain row's entry ``name`` of ``row[*][key]``: site-sized
-    entries concatenated over the bands, the others from site rank 0
-    after a check that every site rank holds the same bits."""
+def _gather_row(row, name, cut, key):
+    """One chain row's entry ``name`` of ``row[*][key]``: the site-sized
+    entries (the names in ``cut``, :func:`_site_states`) concatenated
+    over the bands, the others from site rank 0 after a check that every
+    site rank holds the same bits."""
     vals = [r[key][name] for r in row]
-    if _site_sized(name, vals[0], n_band):
+    if name in cut:
         return np.concatenate(vals, axis=-1)
     for s, v in enumerate(vals[1:], 1):
         if not np.array_equal(v, vals[0], equal_nan=True):
@@ -530,27 +572,31 @@ def sample_parallel_2d(
     """Run ``sampler`` over a 2-D ('chains', 'sites') mesh
     (:func:`mesh_2d`): the chains split into ``mesh.shape['chains']``
     runs, each run's sites into ``mesh.shape['sites']`` bands (lattice
-    rows, or on a graph a run of sites and a run of the banded layout's
-    blocks, :func:`shard_sampler_2d`), one rank per (run, band), joined in
-    one process group with a ``sites`` subgroup per chain row. Draws
-    match the unsharded sampler up to partitioned-reduction rounding (bit
-    for bit on a 1 x 1 mesh).
+    rows; on a graph a run of sites and a run of the banded layout's
+    blocks; else a run of sites, :func:`shard_sampler_2d`), one rank per
+    (run, band), joined in one process group with a ``sites`` subgroup per
+    chain row. Draws match the unsharded sampler up to
+    partitioned-reduction rounding (bit for bit on a 1 x 1 mesh).
 
     The JAX ``sample_parallel_2d``'s arguments and errors: ``chains``
     defaults to the ``'chains'`` extent and must be a positive multiple
-    of it; the ``'sites'`` extent must divide the site count and the
-    lattice rows, or on a graph the site count and the banded layout's
-    block count (``... block count ...``). Serves the lattice
-    (``solver='stencil'``) and graph (``solver='graph'``, banded or ELL)
-    regimes of ``LogitICARGibbs`` and ``ProbitICARGibbs``; the RSR
-    samplers and the dense regimes raise ``NotImplementedError``, as does
-    ``pg_method='gamma'``. The carry and the cold-start solver check are
-    made once, here, by ``sampler.init_carry``.
+    of it; the ``'sites'`` extent must divide the site count, and the
+    lattice rows on a lattice or the banded layout's block count on a
+    graph (``... block count ...``). Serves all four samplers in every eta
+    regime: ``LogitICARGibbs`` (``'chol'``, ``'cg'`` with either
+    ``cg_impl``, ``'stencil'``, ``'graph'`` banded or ELL, every
+    ``pg_method``), ``ProbitICARGibbs`` (``'spectral'``, ``'stencil'``,
+    ``'graph'``), ``LogitRSRGibbs`` and ``ProbitRSRGibbs``. A dense solve
+    (``'chol'``, ``'cg'``) gathers its chain row's field and runs whole on
+    every rank of the row (:mod:`.sharded_dense`). The carry and the
+    cold-start solver check are made once, here, by
+    ``sampler.init_carry``.
 
     Returns a :class:`~..posterior.PosteriorParameter` in the chain order
-    of one process; alpha, beta and tau come from site rank 0 of each
-    chain row, which must hold the same bits as its other site ranks;
-    site-sized ``track`` entries are joined over the bands. Sets
+    of one process; alpha, beta and tau (and an RSR sampler's eta) come
+    from site rank 0 of each chain row, which must hold the same bits as
+    its other site ranks; site-sized ``track`` entries are joined over
+    the bands. Sets
     ``sampler.final_carry`` (gathered on the sampler's device; a tripped
     solver guardrail raises after it is set) and
     ``sampler.rank_step_seconds`` (per rank, each step's seconds, the card
@@ -561,8 +607,9 @@ def sample_parallel_2d(
     over the steps after the first two: ``'dct'`` for the lattice
     preconditioner's coefficient field; on a graph ``'perm'`` for the
     banded solve's moves to and from the block runs, ``'gather'`` for the
-    ELL matvec's field vector, ``'halo'`` for the block halos; ``'sum'``
-    for the other site sums.
+    ELL matvec's field vector, ``'halo'`` for the block halos; in a dense
+    regime ``'field'`` for the gathers of the solve's operands and of eta
+    for the quad form; ``'sum'`` for the other site sums.
     """
     n_rows, n_sites = mesh.shape['chains'], mesh.shape['sites']
     if chains is None:
@@ -599,11 +646,11 @@ def sample_parallel_2d(
         for bar in bars:
             bar.close()
 
-    n_band = sampler.n // n_sites
+    cut = _site_states(sampler)
     rows = [results[c * n_sites:(c + 1) * n_sites] for c in range(n_rows)]
     draws = {
         name: np.concatenate(
-            [_gather_row(row, name, n_band, 'draws') for row in rows],
+            [_gather_row(row, name, cut, 'draws') for row in rows],
             axis=1)
         for name in results[0]['draws']
     }
@@ -612,7 +659,7 @@ def sample_parallel_2d(
         torch.as_tensor(np.concatenate([row[0]['keys'] for row in rows]),
                         device=dev),
         {name: torch.as_tensor(np.concatenate(
-            [_gather_row(row, name, n_band, 'states') for row in rows]),
+            [_gather_row(row, name, cut, 'states') for row in rows]),
             device=dev)
          for name in results[0]['states']},
         results[0]['step'],

@@ -264,35 +264,27 @@ class GraphBandOps:
 
     def __init__(self, band, spec, group, timed=False):
         self.band = band
-        self.n = spec.n
         self.group = group
-        self.sites = BandSites(group, timed)
+        self.sites = BandSites(group, timed, slice(band.site0, band.site1),
+                               spec.n)
         self.tail = 0
         if spec.block:
             self.tail = max(band.blk1 * spec.block - spec.n, 0)
-
-    def _field(self, v, label):
-        """The field vector (..., n) of the bands' (..., band sites)
-        parts: each rank writes its band into a zero buffer, one exact
-        all-reduce sums them."""
-        buf = v.new_zeros(v.shape[:-1] + (self.n,))
-        buf[..., self.band.site0:self.band.site1] = v
-        return self.sites.psum(buf, label)
 
     def to_run(self, x, fixed):
         """The band's block run (..., run lanes) of the field of which
         ``x`` (..., band sites) is the band's part, in the permuted order,
         zero on the padded tail."""
-        run = self._field(x, 'perm')[..., fixed['gr_perm']]
+        [field] = self.sites.gather(x, label='perm')
+        run = field[..., fixed['gr_perm']]
         return torch.nn.functional.pad(run, (0, self.tail))
 
     def from_run(self, x, fixed):
         """The band's sites (..., band sites) of the field of which ``x``
         (..., run lanes) is the band's block run."""
-        buf = x.new_zeros(x.shape[:-1] + (self.n,))
+        buf = x.new_zeros(x.shape[:-1] + (self.sites.n,))
         buf[..., fixed['gr_perm']] = x[..., :x.shape[-1] - self.tail]
-        buf = self.sites.psum(buf, 'perm')
-        return buf[..., self.band.site0:self.band.site1].clone()
+        return self.sites.band(self.sites.psum(buf, 'perm'))
 
     def banded_matvec(self, spec, fixed, v):
         nb = self.band.blk1 - self.band.blk0
@@ -306,7 +298,8 @@ class GraphBandOps:
         return self.sites.psum(buf, 'halo')
 
     def matvec(self, spec, fixed, v):
-        return graph.ell_matvec(fixed, v, self._field(v, 'gather'))
+        [field] = self.sites.gather(v, label='gather')
+        return graph.ell_matvec(fixed, v, field)
 
     def quad_form(self, spec, fixed, v):
         return self.sites.sum(v * self.matvec(spec, fixed, v), dim=-1)

@@ -159,12 +159,39 @@ class BandSites(Sites):
     """The site reductions of a band: each partial result all-reduced
     over the band's ``sites`` group. With ``timed=True`` the card is
     synchronised around each all-reduce and its seconds are summed by
-    label into ``seconds`` (calls into ``calls``)."""
+    label into ``seconds`` (calls into ``calls``). Given its run of sites
+    ``span`` (a slice) of a field of ``n`` sites, it also moves between
+    the band and the field (:meth:`gather`, :meth:`band`)."""
 
-    def __init__(self, group, timed=False):
+    def __init__(self, group, timed=False, span=None, n=None):
         self.group = group
         self.timed = timed
+        self.span, self.n = span, n
         self.seconds, self.calls = {}, {}
+
+    def gather(self, *xs, label='field'):
+        """The whole fields (..., n) of the bands ``xs`` (..., band
+        sites): each rank writes its band of every x into one zero buffer
+        and one all-reduce sums them, exactly (every other term is 0)."""
+        if len(xs) == 1:
+            buf = xs[0].new_zeros(xs[0].shape[:-1] + (self.n,))
+            buf[..., self.span] = xs[0]
+            return [self.psum(buf, label)]
+        flat = [x.reshape(-1, x.shape[-1]) for x in xs]
+        buf = flat[0].new_zeros((sum(f.shape[0] for f in flat), self.n))
+        buf[:, self.span] = torch.cat(flat)
+        buf = self.psum(buf, label)
+        out, row = [], 0
+        for x, f in zip(xs, flat):
+            # a copy each: a fresh allocation, as the operand of one
+            # process would be
+            out.append(buf[row:row + f.shape[0]].reshape(
+                x.shape[:-1] + (self.n,)).clone())
+            row += f.shape[0]
+        return out
+
+    def band(self, x):
+        return x[..., self.span].contiguous()
 
     def psum(self, x, label=None):
         if not self.timed:

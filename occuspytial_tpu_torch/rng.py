@@ -155,6 +155,19 @@ def words(keys, step, update, count):
     return DrawPlan({update: count}, keys.device)(keys, step)[update]
 
 
+def lane_words(keys, step, update, lanes, per_lane):
+    """(chains, len(lanes) * per_lane) words of update ``update`` at step
+    ``step``: column j's ``per_lane`` words are words ``lanes[j] *
+    per_lane + t`` (t < per_lane) of the update's full draw
+    (:func:`words`), so a band of a 2-D run draws the words the whole
+    field gives its lanes. ``lanes`` (m,) int64 on the keys' device."""
+    idx = (lanes[:, None] * per_lane
+           + torch.arange(per_lane, device=lanes.device)).reshape(-1)
+    y0, y1 = threefry2x32(keys[:, :1], keys[:, 1:], int(step),
+                          (update << _LANE_BITS) | (idx >> 1))
+    return torch.where((idx & 1).bool(), y1, y0)
+
+
 def uniform(w, dtype=torch.float32):
     """One uniform in (0, 1] per 32-bit word: ``1 - (w >> 9) * 2^-23``,
     bit for bit the TPU kernel's mantissa trick (ops/pallas_pg.py)."""

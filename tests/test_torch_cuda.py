@@ -622,6 +622,58 @@ def test_sample_parallel_2d_gloo_on_one_card(dev):
     np.testing.assert_allclose(post['tau'], local['tau'], rtol=2e-3)
 
 
+def test_sample_parallel_2d_dense_cg_kernel_on_one_card(dev):
+    """The 2-D sampler in the dense ``'cg'`` regime through the CUDA CG
+    kernel: a 1 x 2 gloo mesh of two ranks on cuda:0 (two runs of 300
+    sites), each launching K3 on its chain row's gathered field three
+    times a step and K1 with its lane table once, against the in-process
+    run."""
+    from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
+
+    Q, W, X, y, *_ = make_lattice_dataset(20, 30, ns=300, seed=5)
+
+    def make():
+        return LogitICARGibbs(Q, W, X, y, random_state=4, solver='cg',
+                              cg_iters=15, cg_impl='pallas')
+
+    s = make()
+    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    post = sample_parallel_2d(s, 6, mesh_2d(1, 2, ['cuda:0'] * 2),
+                              chains=4)
+    # the parent's cold-start check launches each kernel once
+    assert pg_devroye_cuda.launches == before[0] + 1 + 2 * 6
+    assert icar_cg_solve_cuda.launches == before[1] + 1 + 2 * 3 * 6
+    assert s.last_solver_resid < s.solver_check_tol
+    local = make().sample(6, chains=4, progressbar=False)
+    for name in ('alpha', 'beta'):
+        np.testing.assert_allclose(post[name], local[name], rtol=2e-3,
+                                   atol=2e-4)
+    np.testing.assert_allclose(post['tau'], local['tau'], rtol=2e-3)
+
+
+def test_sample_parallel_2d_rsr_one_rank_is_bit_identical(dev):
+    """``LogitRSRGibbs`` (``pg_method='pallas_packed'``) on a 1 x 1 mesh
+    on cuda:0: the band is the field, so its draws and final carry are the
+    in-process run's, bit for bit."""
+    from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
+
+    Q, W, X, y, *_ = make_lattice_dataset(10, 10, ns=50, seed=3)
+
+    def make():
+        return LogitRSRGibbs(Q, W, X, y, random_state=3,
+                             pg_method='pallas_packed')
+
+    s = make()
+    post = sample_parallel_2d(s, 6, mesh_2d(1, 1, ['cuda:0'],
+                                            backend='gloo'), chains=8)
+    local_s = make()
+    local = local_s.sample(6, chains=8, progressbar=False)
+    for name in ('alpha', 'beta', 'tau'):
+        np.testing.assert_array_equal(post[name], local[name])
+    for name, val in local_s.final_carry.states.items():
+        assert torch.equal(s.final_carry.states[name], val), name
+
+
 @pytest.mark.parametrize('block', [128, 0], ids=['banded', 'ell'])
 def test_graph_band_operators_on_the_card(dev, block):
     """The graph band operators of the 2-D sampler (matvec, quad form,

@@ -292,17 +292,29 @@ def test_errors():
         sample_parallel_2d(s, 2, _mesh(1, 2), chains=0)
     with pytest.raises(ValueError, match='burnin'):
         sample_parallel_2d(s, 2, _mesh(1, 2), burnin=2)
-    # the graph regime runs (tests/test_torch_parallel_2d_graph.py); the
-    # RSR samplers and the dense regimes are ROADMAP item 15c
+    # the graph regime runs (tests/test_torch_parallel_2d_graph.py), and
+    # so do the RSR samplers and the dense regimes, in runs of sites
+    # (tests/test_torch_parallel_2d_dense.py)
     graph = LogitICARGibbs(sps.csr_matrix(DATA[0]), *DATA[1:],
                            random_state=4, solver='graph', device='cpu')
     assert len(shard_sampler_2d(graph, graph.init_carry(2),
                                 _mesh(1, 2))) == 2
     rsr = LogitRSRGibbs(*DATA, random_state=4, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 15c'):
-        sample_parallel_2d(rsr, 2, _mesh(1, 2))
+    carry = rsr.init_carry(2)
+    parts = shard_sampler_2d(rsr, carry, _mesh(1, 2))
+    assert len(parts) == 2
+    for view, (_, states, _) in parts:
+        # the Moran basis's rows of the band; eta (chains, q) kept whole
+        assert view.n == 80 and view.fixed['K'].shape == (80, rsr.q_dim)
+        assert torch.equal(states['eta'], carry.states['eta'])
+        assert states['spatial'].shape == (2, 80)
     spectral = ProbitICARGibbs(*DATA, random_state=4, device='cpu')
-    with pytest.raises(NotImplementedError, match='lattice regime'):
-        sample_parallel_2d(spectral, 2, _mesh(1, 2))
+    parts = shard_sampler_2d(spectral, spectral.init_carry(2), _mesh(1, 2))
+    assert [tuple(v.fixed['q_eigvecs'].shape) for v, _ in parts] \
+        == [(80, 160)] * 2
+    # a dense sampler: 3 site ranks do not split 160 sites (the JAX
+    # message)
+    with pytest.raises(ValueError, match='must divide the site count 160'):
+        sample_parallel_2d(spectral, 2, _mesh(1, 3))
     with pytest.raises(ValueError, match='devices for a'):
         mesh_2d(2, 2, ['cpu'] * 3)
