@@ -15,7 +15,9 @@ processes), the site-sharded lattice and graph solves over
 ``torch.distributed`` worlds (gloo ranks on one card, NCCL one rank per
 card) and ``parallel.sample_parallel_2d`` (over a chains x sites mesh
 of ranks: both ICAR samplers' lattice and graph regimes, then the dense
-regimes and the RSR samplers), and prints one
+regimes and the RSR samplers), then holds the captured Gibbs step (the
+default runner on the card, a CUDA graph replayed once a step) against
+the host loop on every one-process path, and prints one
 JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero without
 that line; it also fails without CUDA. ``--stop-after N`` ends
@@ -23,6 +25,7 @@ after phase N (a quick build-and-check run).
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -37,7 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # headline problem of bench.py (config 4)
 HEAD = dict(n=1000, ns=500, p=3, q=3, min_v=2, max_v=10, random_state=7)
 CHAINS = 64
-MAIN_SIZE, MAIN_BURNIN = 1024, 256
+# phase 5 runs the bench's depth (bench.py:390-401)
+MAIN_SIZE, MAIN_BURNIN = 3008, 512
 CG_SIZE, CG_BURNIN = 512, 128
 # bench.py configs 3, 2 and 2b at their widths, depth cut from 3008 / 512
 # and 2048 / 512 draws
@@ -74,6 +78,9 @@ TWO_D_STEPS, TWO_D_SITES = 6, 4
 # at the widths of configs 4, 3, 2, 2b and 1 (config 1 runs one chain in
 # the bench: 4 here)
 DENSE_CHOL_CHAINS = 4
+# phase 18: the captured step against the host loop, steps each way, and
+# the replays traced by torch.profiler
+GRAPH_STEPS, GRAPH_PROFILE_STEPS = 32, 8
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
 #: op/s, dense TF32 tensor-core op/s
@@ -197,6 +204,23 @@ def run_timed(sampler, size, burnin, chains, counters):
     return post, sec, [c.launches for c in counters]
 
 
+def warmup_steps():
+    """Eager steps a sampler runs on clones of its carry before it
+    captures its step; their kernel launches count."""
+    from occuspytial_tpu_torch.models.base import GibbsBase
+
+    return GibbsBase._graph_warmup_steps
+
+
+def eager_reference(s, size, chains):
+    """``s.sample(size, chains=chains)`` through the host loop
+    (``_run_eager``), the loop a 2-D rank runs: the draws as
+    {name: (chains, size[, dim])} and ``s.final_carry`` set."""
+    carry, out = s._run_eager(s.init_carry(chains), size)
+    s.final_carry = carry
+    return {k: np.moveaxis(v.cpu().numpy(), 0, 1) for k, v in out.items()}
+
+
 def report(label, post, size, sec):
     ess = min_pooled_ess(post)
     print(f'    {label}: {size / sec:.2f} it/s, min pooled bulk-ESS '
@@ -314,11 +338,13 @@ def parallel_phase(dev, kind, card, counters, data, post_6, sec_6):
     wall = time.perf_counter() - ts
     pg_n, cg_n = (c.launches for c in counters)
     # the parent's cold-start check launches each kernel once; each
-    # worker then launches K1 once a step and K3 three times a step
-    check(pg_n == 1 + 2 * CG_SIZE,
-          f'parallel K1 launches {pg_n} != {1 + 2 * CG_SIZE}')
-    check(cg_n == 1 + 2 * 3 * CG_SIZE,
-          f'parallel K3 launches {cg_n} != {1 + 2 * 3 * CG_SIZE}')
+    # worker then launches K1 once a step and K3 three times a step, in
+    # its warm-up steps and in its captured step's replays
+    steps = CG_SIZE + warmup_steps()
+    check(pg_n == 1 + 2 * steps,
+          f'parallel K1 launches {pg_n} != {1 + 2 * steps}')
+    check(cg_n == 1 + 2 * 3 * steps,
+          f'parallel K3 launches {cg_n} != {1 + 2 * 3 * steps}')
     check_posterior(post, CHAINS, CG_SIZE - CG_BURNIN,
                     {'alpha': s.n_alpha, 'beta': s.n_beta, 'tau': 0})
     check_state(s.final_carry)
@@ -344,7 +370,9 @@ def parallel_phase(dev, kind, card, counters, data, post_6, sec_6):
 def sharded_phase(dev, card):
     """Phase 14: the site-sharded stencil and graph solves at config 5's
     width over gloo ranks on one card and an NCCL world of one rank per
-    card, against the single-device operators and a float64 host solve."""
+    card, against the single-device operators and a float64 host solve.
+    Returns config 5g's graph build, ``(Q, (spec, arrays))``, which phase
+    16's samplers take (:func:`two_d_samplers`)."""
     import scipy.sparse as sps
     import scipy.sparse.linalg as spla
     import torch
@@ -451,10 +479,10 @@ def sharded_phase(dev, card):
                           for k, v in ms.items()))
 
         # -- the graph
-        tb = time.perf_counter()
-        gspec, arrs = graph.build(q5, deflate=GRAPH_RANK, block=GRAPH_BLOCK)
+        (gspec, arrs), build_sec = timed_call(
+            graph.build, q5, deflate=GRAPH_RANK, block=GRAPH_BLOCK)
         print(f'    graph build (block {GRAPH_BLOCK}, rank {GRAPH_RANK}) '
-              f'{time.perf_counter() - tb:.2f} s: {gspec}')
+              f'{build_sec:.2f} s: {gspec}')
         sg.check_extent(gspec, SHARD_RANKS)
         nb, bs = gspec.n_pad // gspec.block, gspec.block
         panels = (arrs['gr_bd_diag'], arrs['gr_bd_sub'], arrs['gr_bd_sup'])
@@ -516,20 +544,80 @@ def sharded_phase(dev, card):
         for w in worlds.values():
             w.close()
     done(t0)
+    return q5, (gspec, arrs)
 
 
-def two_d_phase(dev, card, counters, regime):
+def timed_call(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` and its seconds on the host clock."""
+    tb = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, time.perf_counter() - tb
+
+
+@contextlib.contextmanager
+def graph_reused(built):
+    """Within the block, ``ops/graph.build`` of phase 14's Q at its rank
+    and tile size returns phase 14's result (``built``: ``(Q, (spec,
+    arrays))``) instead of building it again; the build is a function of
+    Q alone (shift-invert Lanczos from a fixed start vector). Any other
+    build runs as it is."""
+    from occuspytial_tpu_torch.ops import graph
+
+    q_built, (spec, arrays) = built
+    build = graph.build
+
+    def reuse(Q, deflate=64, dtype=np.float32, block='auto'):
+        if (deflate == GRAPH_RANK and block == GRAPH_BLOCK
+                and dtype is np.float32 and Q.shape == q_built.shape
+                and abs(Q - q_built).max() == 0):
+            return spec, {k: v.copy() for k, v in arrays.items()}
+        return build(Q, deflate=deflate, dtype=dtype, block=block)
+
+    graph.build = reuse
+    try:
+        yield
+    finally:
+        graph.build = build
+
+
+def two_d_samplers(dev, regime, graph_built=None):
+    """Phase 15's or 16's two samplers (logit, probit) on config 5 or 5g,
+    each with its build seconds: cls -> (sampler, seconds). On config 5g
+    both take ``graph_built``, phase 14's build (:func:`graph_reused`)."""
+    import scipy.sparse as sps
+
+    from occuspytial_tpu_torch import LogitICARGibbs, ProbitICARGibbs
+
+    Q, W, X, y = make_lattice_dataset(
+        LARGE['rows'], LARGE['cols'], ns=LARGE['ns'], seed=LARGE['seed'],
+        min_v=LARGE['min_v'], max_v=LARGE['max_v'])[:4]
+    if regime == 'graph':
+        q_in = sps.csr_matrix(Q)
+        kw = dict(solver='graph', graph_rank=GRAPH_RANK,
+                  graph_block=GRAPH_BLOCK)
+        with graph_reused(graph_built):
+            return {cls: timed_call(cls, q_in, W, X, y,
+                                    random_state=LARGE['seed'], device=dev,
+                                    **kw)
+                    for cls in (LogitICARGibbs, ProbitICARGibbs)}
+    kw = dict(lattice=(LARGE['rows'], LARGE['cols'], 8))
+    return {cls: timed_call(cls, Q, W, X, y, random_state=LARGE['seed'],
+                            device=dev, **kw)
+            for cls in (LogitICARGibbs, ProbitICARGibbs)}
+
+
+def two_d_phase(dev, card, counters, regime, graph_built=None):
     """Phase 15 (``regime='stencil'``) or 16 (``'graph'``):
     ``sample_parallel_2d`` at the full width of config 5 (the 100 x 100
     lattice, 32 chains, phase 10's seed) or config 5g (the same lattice as
     a sparse Q, 64 chains, deflation rank 512 and 256-site tiles: 40
     blocks, 10 a rank) against the same runs in one process. Each family's
     sampler is built once; every run takes a shallow copy of it, whose
-    cold-start solver check has not run (``.copy()`` would reseed).
-    Returns K1's launches in (a)."""
+    cold-start solver check has not run (``.copy()`` would reseed). On
+    config 5g both take phase 14's graph build (``graph_built``). Returns
+    K1's launches in (a)."""
     import copy
 
-    import scipy.sparse as sps
     import torch
 
     from occuspytial_tpu_torch import LogitICARGibbs, ProbitICARGibbs
@@ -545,30 +633,19 @@ def two_d_phase(dev, card, counters, regime):
     else:
         t0 = phase(f'15 sample_parallel_2d: config 5 (100 x 100 lattice, '
                    f'{chains} chains), chains x sites meshes')
-    Q, W, X, y = make_lattice_dataset(
-        LARGE['rows'], LARGE['cols'], ns=LARGE['ns'], seed=LARGE['seed'],
-        min_v=LARGE['min_v'], max_v=LARGE['max_v'])[:4]
-    if graph:
-        q_in = sps.csr_matrix(Q)
-        kw = dict(solver='graph', graph_rank=GRAPH_RANK,
-                  graph_block=GRAPH_BLOCK)
-    else:
-        q_in, kw = Q, dict(lattice=(LARGE['rows'], LARGE['cols'], 8))
     n_cards = torch.cuda.device_count()
-    built = {}
-    for cls in (LogitICARGibbs, ProbitICARGibbs):
-        tb = time.perf_counter()
-        built[cls] = cls(q_in, W, X, y, random_state=LARGE['seed'],
-                         device=dev, **kw)
+    built = two_d_samplers(dev, regime, graph_built)
+    for cls, (s, sec) in built.items():
         if graph:
-            g, iters = built[cls].graph, built[cls].cg_iters
-            n_pad = -(-len(X) // GRAPH_BLOCK) * GRAPH_BLOCK
+            g, iters = s.graph, s.cg_iters
+            n_pad = -(-s.n // GRAPH_BLOCK) * GRAPH_BLOCK
             check((g.block, g.n_pad, g.deflate, iters)
                   == (GRAPH_BLOCK, n_pad, GRAPH_RANK, 7)
                   and (g.n_pad // g.block) % TWO_D_SITES == 0,
                   f'graph layout {g} cg_iters {iters}')
-            print(f'    {cls.__name__} build {time.perf_counter() - tb:.2f} '
-                  f's: {g}, cg_iters {iters}')
+            print(f'    {cls.__name__} build {sec:.2f} s (phase 14\'s graph '
+                  f'reused): {g}, cg_iters {iters}')
+    built = {cls: s for cls, (s, _) in built.items()}
 
     def make(cls):
         return copy.copy(built[cls])
@@ -604,13 +681,15 @@ def two_d_phase(dev, card, counters, regime):
             worst = max(worst, float(np.abs(post[name] - want[name]).max()))
         return worst
 
+    # the references run the host loop, as the ranks do (phase 18 holds
+    # the captured step against it)
     ref, ref_ms, ref_carry = {}, {}, {}
     for cls in (LogitICARGibbs, ProbitICARGibbs):
         s = make(cls)
         s.init_carry(1)  # the cold-start check, outside the timing
         torch.cuda.synchronize()
         ts = time.perf_counter()
-        ref[cls] = s.sample(TWO_D_STEPS, chains=chains, progressbar=False)
+        ref[cls] = eager_reference(s, TWO_D_STEPS, chains)
         torch.cuda.synchronize()
         ref_ms[cls] = 1e3 * (time.perf_counter() - ts) / TWO_D_STEPS
         ref_carry[cls] = s.final_carry
@@ -751,7 +830,9 @@ def dense_2d_phase(dev, card, counters, head, lattice):
         s.init_carry(1)  # the cold-start check, outside the timing
         torch.cuda.synchronize()
         ts = time.perf_counter()
-        ref[k] = s.sample(TWO_D_STEPS, chains=cases[k][4], progressbar=False)
+        # the host loop, as the ranks run it (phase 18 holds the captured
+        # step against it)
+        ref[k] = eager_reference(s, TWO_D_STEPS, cases[k][4])
         torch.cuda.synchronize()
         ref_ms[k] = 1e3 * (time.perf_counter() - ts) / TWO_D_STEPS
         ref_carry[k] = s.final_carry
@@ -917,10 +998,98 @@ def dense_2d_phase(dev, card, counters, head, lattice):
     return pg_a, cg_a
 
 
+def graph_phase(dev, card, paths, lattice):
+    """Phase 18: the captured step (the default runner on the card)
+    against the host loop (``_run_eager``) on every one-process path of
+    phases 5-12 (``paths``: label -> (sampler, chains)) and on logit
+    ``'chol'`` (config 1's ``lattice`` data, 4 chains): from one carry,
+    :data:`GRAPH_STEPS` steps each way after the graph's warm-up and
+    capture. Per path: draws and final carry bit for bit, ms a step of
+    each by CUDA events, the capture's seconds, and K1's and K3's
+    launches a replay three ways: by ``torch.profiler`` (kernels by
+    name), by the kernels' own device counters, and as recorded into the
+    graph. Every path is printed before a failure raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from occuspytial_tpu_torch import LogitICARGibbs
+    from occuspytial_tpu_torch.models.base import KERNEL_COUNTERS
+
+    t0 = phase(f'18 graph runner against the eager loop: every one-process '
+               f'path, {GRAPH_STEPS} steps each way ({card})')
+    chol = LogitICARGibbs(*lattice, random_state=LATTICE['seed'], device=dev)
+    check(chol.solver == 'chol', 'config 1 is not the chol regime')
+    paths = dict(paths)
+    paths["logit 'chol'"] = (chol, DENSE_CHOL_CHAINS)
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / GRAPH_STEPS
+
+    failed = []
+    for label, (s, chains) in paths.items():
+        check(not s._runs_eagerly(), f'{label} runs eagerly')
+        s.track = ()
+        # capture anew, timed here (an earlier phase's graph is dropped)
+        s.__dict__.pop('_graph_runners', None)
+        carry = s.init_carry(chains)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        runner = s._graph_runner(carry, GRAPH_STEPS)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - ts
+        (c_e, o_e), eager_ms = timed(lambda: s._run_eager(carry,
+                                                          GRAPH_STEPS))
+        (c_g, o_g), graph_ms = timed(lambda: runner.run(carry, GRAPH_STEPS))
+        pairs = [(o_g[k], o_e[k]) for k in o_e] + [(c_g.keys, c_e.keys)] + [
+            (c_g.states[k], v) for k, v in c_e.states.items()]
+        same = all(torch.equal(a, b) for a, b in pairs)
+        for c in KERNEL_COUNTERS:
+            c.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            runner.run(carry, GRAPH_PROFILE_STEPS)
+            torch.cuda.synchronize()
+        counted = [c.launches / GRAPH_PROFILE_STEPS for c in KERNEL_COUNTERS]
+        kernels = [e.name for e in prof.events()
+                   if e.device_type.name == 'CUDA'
+                   and not e.name.startswith(('Memcpy', 'Memset'))]
+        per = len(kernels) / GRAPH_PROFILE_STEPS
+        seen = [sum(tag in n for n in kernels) / GRAPH_PROFILE_STEPS
+                for tag in ('pg_devroye', 'icar_cg')]
+        if same:
+            bits = 'draws and final carry bit-identical'
+        else:
+            diff = max(float((a.double() - b.double()).abs().max())
+                       for a, b in pairs if a.is_floating_point())
+            bits = f'NOT bit-identical, max |diff| {diff:.3e}'
+            failed.append(f'{label}: {bits}')
+        if not seen == counted == runner.per_replay:
+            failed.append(f'{label}: K1, K3 a replay by the profiler {seen}, '
+                          f'by the kernels\' counters {counted}, recorded '
+                          f'in the graph {runner.per_replay}')
+        print(f'    {label}, {chains} chains: {bits}; ms a step eager '
+              f'{eager_ms:.3f}, graph {graph_ms:.3f} '
+              f'({eager_ms / graph_ms:.2f}x); warm-up and capture '
+              f'{setup:.3f} s (capture '
+              f'{runner.capture_seconds:.3f} s); kernels a replay '
+              f'(profiler) {per:.1f}, K1 {seen[0]:g}, K3 {seen[1]:g} '
+              f'(counters {counted[0]:g}, {counted[1]:g}; recorded '
+              f'{runner.per_replay[0]}, {runner.per_replay[1]})')
+    check(not failed, '; '.join(failed))
+    done(t0)
+
+
 def large_n_phases(dev, kind, card, counters):
     """Phases 10-12: both ICAR samplers' matrix-free eta regimes on the
     10,000-site lattice of bench.py configs 5 and 5g. Returns K1's
-    launches on the stencil and graph logit paths."""
+    launches on the stencil and graph logit paths and the four samplers
+    with their chain counts (label -> (sampler, chains))."""
     import scipy.sparse as sps
     import torch
 
@@ -957,9 +1126,10 @@ def large_n_phases(dev, kind, card, counters):
         print(f'    build seconds (sampler construction) {build:.2f}')
         post, sec, (pg_n, cg_n) = run_timed(s, LARGE_SIZE, LARGE_BURNIN,
                                             chains, counters)
-        # one PG launch a step plus the cold-start check's; no K3
-        check(pg_n == LARGE_SIZE + 1,
-              f'{regime} PG launches {pg_n} != {LARGE_SIZE + 1}')
+        # one PG launch a step (warm-up and replays) plus the cold-start
+        # check's; no K3
+        want = LARGE_SIZE + warmup_steps() + 1
+        check(pg_n == want, f'{regime} PG launches {pg_n} != {want}')
         check(cg_n == 0, f'{regime} launched the K3 CG')
         check_posterior(post, chains, LARGE_SIZE - LARGE_BURNIN, dims)
         check_state(s.final_carry)
@@ -1009,6 +1179,8 @@ def large_n_phases(dev, kind, card, counters):
     t0 = phase('12 ProbitICARGibbs stencil and graph, the same problem '
                '(32 chains)')
     probit = {}
+    paths = {f'logit {r}': (samplers[r], LARGE_CHAINS[r])
+             for r in ('stencil', 'graph')}
     for regime, (q_in, kw) in inputs.items():
         s = ProbitICARGibbs(q_in, W5, X5, y5, random_state=LARGE['seed'],
                             device=dev, **kw)
@@ -1031,15 +1203,16 @@ def large_n_phases(dev, kind, card, counters):
               f'|sum eta| / sum |eta| {drift:.2e}')
         report(f'{kind} ({card})', post, PROBIT_LARGE_SIZE, sec)
         probit[regime] = post
+        paths[f'probit {regime}'] = (s, PROBIT_LARGE_CHAINS)
     worst = mean_parity(probit['stencil'], probit['graph'])
     print(f'    worst mean z-ratio, stencil vs graph {worst:.3f}')
     done(t0)
-    return launches
+    return launches, paths
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--stop-after', type=int, default=18)
+    ap.add_argument('--stop-after', type=int, default=19)
     args = ap.parse_args()
 
     import torch
@@ -1131,9 +1304,9 @@ def main():
           'changing chain 5 key changed other chains')
     for method in ('pallas', 'pallas_packed'):
         s.pg_method = method
-        before = pg_devroye_cuda.launches
+        before = pg_devroye_cuda.counter.launches
         check(torch.equal(s._pg(sub, z), out_k), f'{method} differs')
-        check(pg_devroye_cuda.launches == before + 1, f'{method} no launch')
+        check(pg_devroye_cuda.counter.launches == before + 1, f'{method} no launch')
     s.pg_method = 'pallas_packed'
     # a lane table (the 2-D sampler's): column j draws as global lane
     # lanes[j], so a band's lanes drawn alone are the full-width draw at
@@ -1340,22 +1513,32 @@ def main():
     if args.stop_after < 5:
         return
 
-    t0 = phase('5 main path: LogitICARGibbs defaults, headline problem')
+    t0 = phase(f'5 main path: LogitICARGibbs defaults, headline problem, '
+               f'{MAIN_SIZE}/{MAIN_BURNIN} draws through the captured step')
     main = LogitICARGibbs(Q, W, X, y, random_state=HEAD['random_state'],
                           device=dev)
     check(main.solver == 'cg' and main.pg_method == 'pallas_packed'
-          and main.cg_impl == 'xla', 'unexpected defaults')
-    pg_devroye_cuda.launches = 0
-    icar_cg_solve_cuda.launches = 0
+          and main.cg_impl == 'xla' and not main._runs_eagerly(),
+          'unexpected defaults')
+    warm = warmup_steps()
+    pg_devroye_cuda.counter.launches = 0
+    icar_cg_solve_cuda.counter.launches = 0
     torch.cuda.synchronize()
     ts = time.perf_counter()
     post = main.sample(MAIN_SIZE, burnin=MAIN_BURNIN, chains=CHAINS,
                        progressbar=False)
     torch.cuda.synchronize()
     main_sec = time.perf_counter() - ts
-    pg_launches = pg_devroye_cuda.launches
-    check(pg_launches == MAIN_SIZE + 1,
-          f'PG launches {pg_launches} != {MAIN_SIZE + 1}')
+    pg_launches = pg_devroye_cuda.counter.launches
+    runner = main._graph_runners[(CHAINS, ())]
+    # one a step: the warm-up step, then one a replay; plus the cold-start
+    # solver check's
+    check(runner.per_replay == [1, 0] and runner.length == MAIN_SIZE
+          and runner.replays == MAIN_SIZE,
+          f'main path graph: {runner.per_replay} recorded, length '
+          f'{runner.length}, {runner.replays} replays')
+    check(pg_launches == MAIN_SIZE + warm + 1,
+          f'PG launches {pg_launches} != {MAIN_SIZE + warm + 1}')
     for name in ('alpha', 'beta', 'tau'):
         arr = np.asarray(post[name])
         check(np.isfinite(arr).all(), f'non-finite {name} draws')
@@ -1367,7 +1550,11 @@ def main():
     print(f'    {kind} ({card}): {MAIN_SIZE / main_sec:.2f} it/s, '
           f'min pooled bulk-ESS {ess:.1f}, ESS/s {ess / main_sec:.2f}, '
           f'last_solver_resid {main.last_solver_resid:.3e}, '
-          f'wall {main_sec:.2f} s')
+          f'wall {main_sec:.2f} s (init, cold-start check, {warm} warm-up '
+          f'step and the capture ({runner.capture_seconds:.3f} s) '
+          f'included); K1 {pg_launches} launches by its counter on the '
+          f'card, {runner.per_replay[0]} recorded in the graph, '
+          f'{runner.replays} replays')
     for name in ('alpha', 'beta', 'tau'):
         print(f'    {name} mean {np.asarray(post[name]).mean(axis=(0, 1))}')
     done(t0)
@@ -1375,19 +1562,26 @@ def main():
     t0 = phase("6 same problem with cg_impl='pallas' (CUDA CG kernel)")
     alt = LogitICARGibbs(Q, W, X, y, random_state=HEAD['random_state'] + 1,
                          device=dev, cg_impl='pallas')
-    pg_devroye_cuda.launches = 0
-    icar_cg_solve_cuda.launches = 0
+    pg_devroye_cuda.counter.launches = 0
+    icar_cg_solve_cuda.counter.launches = 0
     torch.cuda.synchronize()
     ts = time.perf_counter()
     post_alt = alt.sample(CG_SIZE, burnin=CG_BURNIN, chains=CHAINS,
                           progressbar=False)
     torch.cuda.synchronize()
     alt_sec = time.perf_counter() - ts
-    cg_launches = icar_cg_solve_cuda.launches
-    pg_launches_alt = pg_devroye_cuda.launches
-    check(cg_launches == 3 * CG_SIZE + 1,
-          f'CG launches {cg_launches} != {3 * CG_SIZE + 1}')
-    check(pg_launches_alt == CG_SIZE + 1, 'PG launches in phase 6')
+    cg_launches = icar_cg_solve_cuda.counter.launches
+    pg_launches_alt = pg_devroye_cuda.counter.launches
+    alt_runner = alt._graph_runners[(CHAINS, ())]
+    check(alt_runner.per_replay == [1, 3]
+          and alt_runner.replays == CG_SIZE,
+          f'cg_impl=pallas graph: {alt_runner.per_replay} recorded, '
+          f'{alt_runner.replays} replays')
+    # three a step (one a sweep) in the warm-up and in every replay, and
+    # the cold-start check's
+    want = 3 * (CG_SIZE + warm) + 1
+    check(cg_launches == want, f'CG launches {cg_launches} != {want}')
+    check(pg_launches_alt == CG_SIZE + warm + 1, 'PG launches in phase 6')
     for name in ('alpha', 'beta', 'tau'):
         check(np.isfinite(np.asarray(post_alt[name])).all(),
               f'non-finite {name} draws (pallas CG)')
@@ -1398,12 +1592,14 @@ def main():
     print(f'    {CG_SIZE / alt_sec:.2f} it/s, min pooled bulk-ESS '
           f'{ess_alt:.1f}, ESS/s {ess_alt / alt_sec:.2f}, '
           f'last_solver_resid {alt.last_solver_resid:.3e}, worst mean '
-          f'z-ratio vs phase 5 {worst:.3f}')
+          f'z-ratio vs phase 5 {worst:.3f}; K3 {cg_launches} launches by '
+          f'its counter, {alt_runner.per_replay[1]} recorded in the graph, '
+          f'{alt_runner.replays} replays')
     done(t0)
 
     if args.stop_after < 7:
         return
-    counters = (pg_devroye_cuda, icar_cg_solve_cuda)
+    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter)
     kept = NEW_SIZE - NEW_BURNIN
 
     t0 = phase('7 LogitRSRGibbs, config 3 width (n = 1000, q = 100, '
@@ -1415,10 +1611,11 @@ def main():
           'unexpected RSR defaults')
     post_rsr, rsr_sec, (rsr_pg_launches, rsr_cg_launches) = run_timed(
         rsr, NEW_SIZE, NEW_BURNIN, CHAINS, counters)
-    # one PG launch a step and no other: no cold-start solver check (the
-    # RSR eta draw never solves against tau*Q + diag(omega))
-    check(rsr_pg_launches == NEW_SIZE,
-          f'RSR PG launches {rsr_pg_launches} != {NEW_SIZE}')
+    # one PG launch a step (warm-up and replays) and no other: no
+    # cold-start solver check (the RSR eta draw never solves against
+    # tau*Q + diag(omega))
+    check(rsr_pg_launches == NEW_SIZE + warm,
+          f'RSR PG launches {rsr_pg_launches} != {NEW_SIZE + warm}')
     check(rsr_cg_launches == 0 and not rsr._solver_checked,
           'RSR ran the ICAR solver')
     check_posterior(post_rsr, CHAINS, kept, {'alpha': s.n_alpha,
@@ -1455,7 +1652,7 @@ def main():
 
     t0 = phase('9 ProbitRSRGibbs, config 2b width (10 x 10 lattice, '
                '512 chains), both ladders')
-    prsr = {}
+    prsr, prsr_s = {}, {}
     for collapsed in (True, False):
         sampler = ProbitRSRGibbs(Q2, W2, X2, y2, random_state=LATTICE['seed'],
                                  collapsed=collapsed, device=dev)
@@ -1468,34 +1665,46 @@ def main():
         check_state(sampler.final_carry)
         print(f'    collapsed={collapsed} (q = {sampler.q_dim}):')
         report(f'{kind} ({card})', post_p, NEW_SIZE, sec_p)
-        prsr[collapsed] = post_p
+        prsr[collapsed], prsr_s[collapsed] = post_p, sampler
     worst_probit = mean_parity(prsr[True], prsr[False])
     print(f'    worst mean z-ratio, collapsed vs reference-ordered '
           f'{worst_probit:.3f}')
     done(t0)
 
+    paths = {
+        "logit 'cg' cg_impl='xla'": (main, CHAINS),
+        "logit 'cg' cg_impl='pallas'": (alt, CHAINS),
+        'logit RSR': (rsr, CHAINS),
+        "probit 'spectral'": (picar, PROBIT_ICAR_CHAINS),
+        'probit RSR collapsed': (prsr_s[True], PROBIT_RSR_CHAINS),
+        'probit RSR reference-ordered': (prsr_s[False], PROBIT_RSR_CHAINS),
+    }
     if args.stop_after < 10:
         return
-    large_launches = large_n_phases(dev, kind, card, counters)
+    large_launches, large_paths = large_n_phases(dev, kind, card, counters)
+    paths.update(large_paths)
     if args.stop_after < 13:
         return
-    par_pg, par_cg = parallel_phase(dev, kind, card, counters, (Q, W, X, y),
-                                    post_alt, alt_sec)
+    par_pg, par_cg = parallel_phase(dev, kind, card, counters,
+                                    (Q, W, X, y), post_alt, alt_sec)
     if args.stop_after < 14:
         return
-    sharded_phase(dev, card)
+    graph_5g = sharded_phase(dev, card)
     if args.stop_after < 15:
         return
     two_d_pg = two_d_phase(dev, card, counters, 'stencil')
     if args.stop_after < 16:
         return
-    two_d_graph_pg = two_d_phase(dev, card, counters, 'graph')
+    two_d_graph_pg = two_d_phase(dev, card, counters, 'graph', graph_5g)
     if args.stop_after < 17:
         return
     dense_pg, dense_cg = dense_2d_phase(dev, card, counters, (Q, W, X, y),
                                         (Q2, W2, X2, y2))
+    if args.stop_after < 18:
+        return
+    graph_phase(dev, card, paths, (Q2, W2, X2, y2))
 
-    t0 = phase('18 report')
+    t0 = phase('19 report')
     # no single PyTorch call computes either function (a fixed-round
     # rejection sampler; a fixed-iteration PCG), so library_ms is null
     common = {'route': 'cuda', 'library_ms': None}
@@ -1504,7 +1713,9 @@ def main():
         source='occuspytial_tpu_torch/csrc/pg_devroye.cu',
         replaces='occuspytial_tpu/ops/pallas_pg.py:205 (K1), '
                  'occuspytial_tpu/ops/pallas_pg.py:191 (K2)',
-        launches=pg_launches, launches_logit_rsr=rsr_pg_launches,
+        launches=pg_launches, replays=runner.replays,
+        launches_per_replay=runner.per_replay[0],
+        launches_logit_rsr=rsr_pg_launches,
         launches_logit_stencil=large_launches['stencil'],
         launches_logit_graph=large_launches['graph'],
         launches_parallel=par_pg, launches_2d=two_d_pg,
@@ -1518,7 +1729,9 @@ def main():
         common, name='icar_cg (K3 _cg_kernel)',
         source='occuspytial_tpu_torch/csrc/icar_cg.cu',
         replaces='occuspytial_tpu/ops/pallas_cg.py:56',
-        launches=cg_launches, launches_parallel=par_cg,
+        launches=cg_launches, replays=alt_runner.replays,
+        launches_per_replay=alt_runner.per_replay[1],
+        launches_parallel=par_cg,
         launches_2d_dense=dense_cg, max_abs_err=cg_err,
         ms=cg_ms,
         plain_ms=cg_plain_ms, bound_ms=cg_bound,

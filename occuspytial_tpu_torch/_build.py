@@ -5,6 +5,7 @@ for ``sm_90a`` (Hopper) into ``build/occuspytial_tpu_torch/`` beside the
 package, and loaded with ``ctypes``. The file name carries a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one
 is reused. :func:`build` starts one ``nvcc`` per source, all together.
+Each kernel counts its own launches on the card (:class:`LaunchCounter`).
 """
 
 import ctypes
@@ -112,3 +113,59 @@ def check(lib, prefix, err):
             f'{prefix} launch failed: CUDA error {err} '
             f'({fn(err).decode()})'
         )
+
+
+class LaunchCounter:
+    """Launches of one kernel, counted by the card: the wrapper passes the
+    kernel a uint64 counter on the launch's device, and thread 0 of block
+    0 of every launch adds one to it. A launch recorded into a CUDA graph
+    is so counted at each replay, and a capture that launches nothing
+    adds nothing.
+
+    :attr:`launches` reads the device counters (a synchronisation) plus
+    what was added on the host (another process's launches, read there);
+    assigning it zeroes the device counters and sets the host part.
+    :attr:`recorded` counts the launches recorded into stream captures
+    (the kernel nodes of the graphs made), which launch nothing until
+    a replay.
+    """
+
+    def __init__(self, name):
+        self.name = name
+        self._counters = {}
+        self._host = 0
+        self.recorded = 0
+
+    def pointer(self, device):
+        """The counter argument of one launch on ``device``: the device
+        counter's address, made (zeroed) at the kernel's first launch
+        there. Making it inside a stream capture would record its
+        zeroing into the graph, so a capture raises unless the kernel has
+        launched on the device before; a launch made inside a capture
+        adds one to :attr:`recorded`."""
+        import torch
+
+        capturing = torch.cuda.is_current_stream_capturing()
+        counter = self._counters.get(device.index)
+        if counter is None:
+            if capturing:
+                raise RuntimeError(
+                    f'{self.name}: first launch on {device} inside a '
+                    'stream capture; launch it once before capturing'
+                )
+            counter = torch.zeros(1, dtype=torch.int64, device=device)
+            self._counters[device.index] = counter
+        if capturing:
+            self.recorded += 1
+        return counter.data_ptr()
+
+    @property
+    def launches(self):
+        return self._host + sum(int(c.item())
+                                for c in self._counters.values())
+
+    @launches.setter
+    def launches(self, value):
+        for c in self._counters.values():
+            c.zero_()
+        self._host = int(value)

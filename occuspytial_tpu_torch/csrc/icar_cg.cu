@@ -116,6 +116,7 @@ struct Params {
     float* rz;        // per row r.z
     float* ratio;     // per row ||r||^2 / ||b||^2
     float* cbar;      // per chain mean(omega)
+    unsigned long long* launches;  // the launch adds 1 (block 0, thread 0)
     int chains, rows, n, iters, M, tiles_m, tiles_n;
 };
 
@@ -586,6 +587,7 @@ icar_cg_kernel(const __grid_constant__ Params P) {
     cg::grid_group grid = cg::this_grid();
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int total = P.tiles_m * P.tiles_n;
+    if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(P.launches, 1ULL);
 
     // b = rhs U with ||b||^2, w = omega o (x0 U'), and mean(omega)
     for (int job = blockIdx.x; job < 2 * total; job += gridDim.x) {
@@ -694,13 +696,15 @@ extern "C" long long icar_cg_scratch_floats(int chains, int rows, int n) {
 }
 
 // Returns a CUDA error code (0 on success). All pointers are device
-// pointers to contiguous float32; `scratch` holds icar_cg_scratch_floats
-// floats and is 16-byte aligned. chains * rows * n must stay below 2^31.
+// pointers, to contiguous float32 but for `launches`, one uint64 the
+// launch adds 1 to; `scratch` holds icar_cg_scratch_floats floats and is
+// 16-byte aligned. chains * rows * n must stay below 2^31.
 extern "C" int icar_cg_launch(const void* U, const void* S, const void* rhs,
                               const void* x0, const void* omega,
                               const void* tau, void* x_site, void* x_spec,
-                              void* rel, void* scratch, int chains, int rows,
-                              int n, int iters, void* stream) {
+                              void* rel, void* scratch, void* launches,
+                              int chains, int rows, int n, int iters,
+                              void* stream) {
     if (chains == 0 || rows == 0 || n == 0) return 0;
     if (chains < 0 || rows < 0 || n < 0 || iters < 0
         || (long long)chains * rows * n >= (1LL << 31))
@@ -715,6 +719,7 @@ extern "C" int icar_cg_launch(const void* U, const void* S, const void* rhs,
     P.x_site = (float*)x_site;
     P.x_spec = (float*)x_spec;
     P.rel = (float*)rel;
+    P.launches = (unsigned long long*)launches;
     P.chains = chains;
     P.rows = rows;
     P.n = n;

@@ -31,6 +31,10 @@
 //     and 4 always (branch choice and tail proposal, series test), blocks
 //     1-2 for the squeeze body, 2-3 for the inverse-Gaussian body.
 //
+// Launch count. Thread 0 of block 0 adds one to `launches` (a device
+// counter owned by the wrapper), so a launch replayed from a captured CUDA
+// graph is counted by the card, as an eager one is.
+//
 // What bounds it on the card: operations (integer Threefry rounds and
 // transcendental calls); bytes are 8 per lane.
 //
@@ -239,8 +243,10 @@ __global__ void __launch_bounds__(kThreads)
 pg_devroye_kernel(const long long* __restrict__ subkeys,
                   long long key_stride, const long long* __restrict__ lanes,
                   const float* __restrict__ z,
-                  float* __restrict__ out, int chains, int m) {
+                  float* __restrict__ out, int chains, int m,
+                  unsigned long long* __restrict__ launches) {
     __shared__ float s_c[kWarps][kChunk];
+    if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ULL);
     __shared__ float s_ratio[kWarps][kChunk];
     const unsigned full = 0xffffffffu;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -289,11 +295,12 @@ pg_devroye_kernel(const long long* __restrict__ subkeys,
 // subkeys[b * key_stride]; `lanes` null, or (m,) int64 global lane
 // indices (column j of z draws lane lanes[j]'s uniforms: a band of sites
 // draws what the whole field gives those lanes); `z` and `out` (chains,
-// m) contiguous float32; all device pointers. Returns a CUDA error code
-// (0 on success).
+// m) contiguous float32; `launches` one uint64 the launch adds 1 to; all
+// device pointers. Returns a CUDA error code (0 on success).
 extern "C" int pg_devroye_launch(const void* subkeys, long long key_stride,
                                  const void* lanes, const void* z, void* out,
-                                 int chains, int m, void* stream) {
+                                 int chains, int m, void* launches,
+                                 void* stream) {
     const long long total = (long long)chains * m;
     if (total == 0) return 0;
     const long long per_block = (long long)kWarps * kChunk;
@@ -301,7 +308,8 @@ extern "C" int pg_devroye_launch(const void* subkeys, long long key_stride,
     pg_devroye_kernel<<<(unsigned)blocks, kThreads, 0,
                         (cudaStream_t)stream>>>(
         (const long long*)subkeys, key_stride, (const long long*)lanes,
-        (const float*)z, (float*)out, chains, m);
+        (const float*)z, (float*)out, chains, m,
+        (unsigned long long*)launches);
     return (int)cudaGetLastError();
 }
 

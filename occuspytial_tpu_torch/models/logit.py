@@ -86,6 +86,10 @@ class LogitICARGibbs(GibbsBase):
     deflation basis (default ``dtype``).
     """
 
+    _STEP_SETTINGS = GibbsBase._STEP_SETTINGS + (
+        'pg_method', 'blocked', 'cg_impl', 'eig_dtype',
+    )
+
     def __init__(
         self, Q, W, X, y, hparams=None, random_state=None,
         dtype=torch.float32, pg_method=None, solver=None, cg_iters=None,

@@ -66,6 +66,10 @@ class _ProbitBase(GibbsBase):
     otherwise a Metropolis step with ``log g ~ N(0, px_sd^2)``.
     """
 
+    _STEP_SETTINGS = GibbsBase._STEP_SETTINGS + (
+        'collapsed', 'px', 'px_sd', '_px_exact', '_omega_a_update',
+    )
+
     def __init__(
         self, Q, W, X, y, hparams=None, random_state=None,
         dtype=torch.float32, collapsed=True, px=True, px_sd=0.3,

@@ -21,7 +21,7 @@ from .cg import icar_cg_solve_spectral
 #: the kernel indexes its (chains * rows, n) vectors with 32-bit integers
 MAX_ELEMENTS = 2 ** 31 - 1
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _library():
@@ -40,8 +40,14 @@ def icar_cg_solve_cuda(rhs, warm_spec, omega, tau, eigvecs, eigvals, iters,
     ``rhs``/``warm_spec`` (chains, rows, n), ``omega`` (chains, n),
     ``tau`` (chains,). CUDA tensors go through the kernel (float32
     only, fewer than 2**31 elements in ``rhs``); CPU tensors through the
-    plain solve. Each kernel launch adds one to
-    ``icar_cg_solve_cuda.launches``.
+    plain solve. Each launch of the kernel adds one to
+    ``icar_cg_solve_cuda.counter`` on the card (:class:`.._build.
+    LaunchCounter`), so a launch recorded into a captured step counts at
+    every replay. A stream capture takes the
+    cooperative launch as it is (a cooperative kernel node; CUDA 12.8 on
+    the H100). The first launch on a device makes the occupancy query
+    and the shared-memory attribute call and caches the grid; the graph
+    runner's warm-up step makes that launch outside the capture.
     """
     if rhs.device.type == 'cpu':
         return icar_cg_solve_spectral(
@@ -85,18 +91,19 @@ def icar_cg_solve_cuda(rhs, warm_spec, omega, tau, eigvecs, eigvals, iters,
         lib.icar_cg_scratch_floats(chains, rows, n), device=dev,
         dtype=torch.float32,
     )
+    launches = icar_cg_solve_cuda.counter.pointer(dev)
     with torch.cuda.device(dev):
         err = lib.icar_cg_launch(
             u.data_ptr(), s.data_ptr(), rhs_c.data_ptr(), x0.data_ptr(),
             om.data_ptr(), tau_c.data_ptr(), x_site.data_ptr(),
-            x_spec.data_ptr(), rel.data_ptr(), scratch.data_ptr(), chains,
-            rows, n, int(iters), torch.cuda.current_stream(dev).cuda_stream,
+            x_spec.data_ptr(), rel.data_ptr(), scratch.data_ptr(), launches,
+            chains, rows, n, int(iters),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, 'icar_cg', err)
-    icar_cg_solve_cuda.launches += 1
     if return_resid:
         return x_site, x_spec, rel
     return x_site, x_spec
 
 
-icar_cg_solve_cuda.launches = 0
+icar_cg_solve_cuda.counter = _build.LaunchCounter('icar_cg')

@@ -21,7 +21,7 @@ from .polyagamma import pg_devroye
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p]
 
 
 def pg_devroye_cuda(subkeys, z, lanes=None):
@@ -32,8 +32,11 @@ def pg_devroye_cuda(subkeys, z, lanes=None):
     lanes as the whole field would); without it column j is lane j.
 
     CUDA tensors go through the kernel (float32 only); CPU tensors
-    through the plain sampler. Each kernel launch adds one to
-    ``pg_devroye_cuda.launches``.
+    through the plain sampler. Each launch of the kernel adds one to
+    ``pg_devroye_cuda.counter`` on the card (:class:`.._build.
+    LaunchCounter`), so a launch recorded into a captured step counts at
+    every replay. The launch goes on the current stream, so a stream
+    capture takes it as it is.
     """
     if z.device.type == 'cpu':
         return pg_devroye(subkeys, z, lanes)
@@ -63,6 +66,7 @@ def pg_devroye_cuda(subkeys, z, lanes=None):
     if subkeys.stride(1) != 1:
         subkeys = subkeys.contiguous()
     out = torch.empty_like(z)
+    launches = pg_devroye_cuda.counter.pointer(z.device)
     lib = _build.load('pg_devroye')
     lib.pg_devroye_launch.argtypes = _ARGTYPES
     lib.pg_devroye_launch.restype = ctypes.c_int
@@ -70,12 +74,11 @@ def pg_devroye_cuda(subkeys, z, lanes=None):
         err = lib.pg_devroye_launch(
             subkeys.data_ptr(), subkeys.stride(0),
             None if lanes is None else lanes.data_ptr(), z.data_ptr(),
-            out.data_ptr(), chains, m,
+            out.data_ptr(), chains, m, launches,
             torch.cuda.current_stream(z.device).cuda_stream,
         )
     _build.check(lib, 'pg_devroye', err)
-    pg_devroye_cuda.launches += 1
     return out
 
 
-pg_devroye_cuda.launches = 0
+pg_devroye_cuda.counter = _build.LaunchCounter('pg_devroye')

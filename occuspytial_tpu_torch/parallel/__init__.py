@@ -40,9 +40,7 @@ import torch
 
 from .. import _build, rng
 from .._device import resolve_device
-from ..models.base import Carry
-from ..ops.cuda_cg import icar_cg_solve_cuda
-from ..ops.cuda_pg import pg_devroye_cuda
+from ..models.base import KERNEL_COUNTERS, Carry
 from ..posterior import PosteriorParameter
 from . import _spmd
 from ._spmd import World, Workers
@@ -56,9 +54,6 @@ from .sharded_graph import (
     graph_bands,
 )
 from .sharded_stencil import BandOps, BandSites, bands
-
-#: the kernel wrappers whose launches the workers report to the parent
-_COUNTERS = (pg_devroye_cuda, icar_cg_solve_cuda)
 
 
 def chain_mesh(n_devices=None, devices=None):
@@ -114,7 +109,8 @@ def shard_chains(carry, mesh):
 
 
 class _Progress:
-    """The worker's stand-in for a progress bar: one message a step."""
+    """The worker's stand-in for a progress bar: one message a chunk
+    (:meth:`..models.base.GibbsBase._run`)."""
 
     def __init__(self, conn):
         self.conn = conn
@@ -146,7 +142,7 @@ def _sample_worker(conn, device, progress):
         'keys': carry.keys.cpu().numpy(),
         'states': {k: v.cpu().numpy() for k, v in carry.states.items()},
         'step': carry.step,
-        'launches': [c.launches for c in _COUNTERS],
+        'launches': [c.launches for c in KERNEL_COUNTERS],
         'seconds': seconds,
     }))
 
@@ -229,7 +225,7 @@ def sample_parallel(
         results[0]['step'],
     )
     sampler.worker_seconds = [r['seconds'] for r in results]
-    for i, counter in enumerate(_COUNTERS):
+    for i, counter in enumerate(KERNEL_COUNTERS):
         counter.launches += sum(r['launches'][i] for r in results)
     sampler._check_run_solver_health(sampler.final_carry)
     merged = {
@@ -531,17 +527,20 @@ def _sample_band(sampler, carry, size, progress, timed):
     sampler._sites = sites
     keys, states, step = carry
     carry = _carry_to(Carry(keys, states, step), device)
-    before = [c.launches for c in _COUNTERS]
+    before = [c.launches for c in KERNEL_COUNTERS]
     clock = _StepClock(device, sites)
     bars = [clock] + ([_Progress(_spmd.rank_conn())] if progress else [])
-    carry, out = sampler._run(carry, size, bars)
+    # the host loop, always (the one place a band's runner is chosen): a
+    # capture takes no all-reduce, and the clock times each step
+    carry, out = sampler._run_eager(carry, size, bars)
     step_seconds = np.diff(clock.times)
     return {
         'draws': {k: v.cpu().numpy() for k, v in out.items()},
         'keys': carry.keys.cpu().numpy(),
         'states': {k: v.cpu().numpy() for k, v in carry.states.items()},
         'step': carry.step,
-        'launches': [c.launches - b for c, b in zip(_COUNTERS, before)],
+        'launches': [c.launches - b
+                     for c, b in zip(KERNEL_COUNTERS, before)],
         'step_seconds': step_seconds,
         'collective_seconds': dict(sites.seconds),
         'collective_calls': dict(sites.calls),
@@ -671,7 +670,7 @@ def sample_parallel_2d(
              for k in r['collective_calls']}
             for r in results
         ]
-    for i, counter in enumerate(_COUNTERS):
+    for i, counter in enumerate(KERNEL_COUNTERS):
         counter.launches += sum(r['launches'][i] for r in results)
     sampler._check_run_solver_health(sampler.final_carry)
     merged = {name: np.moveaxis(v, 0, 1)[:, burnin:]

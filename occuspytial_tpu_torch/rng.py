@@ -80,6 +80,24 @@ def root_key(seed):
     return seed >> 32, seed & MASK
 
 
+def _step_word(step, keys):
+    """The step counter as Threefry's first counter word: a Python int, or
+    a 0-d int64 tensor on the keys' device. A captured CUDA graph holds
+    the step in such a tensor and advances it in place, where a Python
+    int would be frozen into the kernels' arguments at capture; both
+    forms give the same words."""
+    if isinstance(step, torch.Tensor):
+        if (step.dtype != torch.int64 or step.dim() != 0
+                or step.device != keys.device):
+            raise ValueError(
+                'a tensor step must be a 0-d int64 tensor on the keys\' '
+                f'device, got {step.dtype} {tuple(step.shape)} on '
+                f'{step.device}'
+            )
+        return step
+    return int(step)
+
+
 def chain_keys(seed, chains, purpose, device='cpu'):
     """(chains, 2) int64 key words: chain c's are ``threefry(root,
     (purpose, c))``, so they do not depend on the chain count."""
@@ -121,21 +139,23 @@ class DrawPlan:
                         f'word table of update {uid} leaves [0, {n})'
                     )
                 used, pos = torch.unique(idx >> 1, return_inverse=True)
-                ctrs.append((uid << _LANE_BITS) | used)
+                ctrs.append(((uid << _LANE_BITS) | used).to(device))
                 self.gathers[uid] = (2 * (off + pos) + (idx & 1)).to(device)
                 off += used.numel()
                 continue
+            # made on the device: a plan built inside a captured step
+            # (rng.words) copies nothing from the host
             ctrs.append(
                 (uid << _LANE_BITS)
-                | torch.arange(n_ctr, dtype=torch.int64)
+                | torch.arange(n_ctr, dtype=torch.int64, device=device)
             )
             self.slices[uid] = (2 * off, 2 * off + int(n))
             off += n_ctr
-        self.x1 = torch.cat(ctrs).to(device)
+        self.x1 = torch.cat(ctrs)
 
     def __call__(self, keys, step):
         y0, y1 = threefry2x32(
-            keys[:, :1], keys[:, 1:], int(step), self.x1[None]
+            keys[:, :1], keys[:, 1:], _step_word(step, keys), self.x1[None]
         )
         w = torch.stack([y0, y1], dim=-1).reshape(keys.shape[0], -1)
         out = {uid: w[:, a:b] for uid, (a, b) in self.slices.items()}
@@ -151,7 +171,8 @@ def normal_words(idx):
 
 
 def words(keys, step, update, count):
-    """(chains, count) words of update ``update`` at step ``step``."""
+    """(chains, count) words of update ``update`` at step ``step`` (an int
+    or a tensor, as for :class:`DrawPlan`)."""
     return DrawPlan({update: count}, keys.device)(keys, step)[update]
 
 
@@ -160,10 +181,11 @@ def lane_words(keys, step, update, lanes, per_lane):
     ``step``: column j's ``per_lane`` words are words ``lanes[j] *
     per_lane + t`` (t < per_lane) of the update's full draw
     (:func:`words`), so a band of a 2-D run draws the words the whole
-    field gives its lanes. ``lanes`` (m,) int64 on the keys' device."""
+    field gives its lanes. ``lanes`` (m,) int64 on the keys' device;
+    ``step`` as for :class:`DrawPlan`."""
     idx = (lanes[:, None] * per_lane
            + torch.arange(per_lane, device=lanes.device)).reshape(-1)
-    y0, y1 = threefry2x32(keys[:, :1], keys[:, 1:], int(step),
+    y0, y1 = threefry2x32(keys[:, :1], keys[:, 1:], _step_word(step, keys),
                           (update << _LANE_BITS) | (idx >> 1))
     return torch.where((idx & 1).bool(), y1, y0)
 

@@ -4,10 +4,14 @@
 Runs one sampler at its defaults on the card, warms up, then traces
 ``--steps`` steps with ``torch.profiler`` and prints, per step: wall
 time, device busy time (union of kernel intervals), the device's idle
-share, kernel launches, host-device synchronisations, and the kernels
-that take most device time. ``--trace PATH`` also writes the Chrome
-trace. ``--model`` picks the problem, each at the width of a JAX bench
-configuration (bench.py):
+share, launch calls from the host (kernel launches and CUDA graph
+launches), kernels run on the device, host-device synchronisations, and
+the kernels that take most device time. The steps run as the sampler
+runs them on the card, as replays of its captured step (``_run``: one
+graph launch a step); ``--eager`` runs the host loop (``_run_eager``:
+every kernel of a step launched from Python) instead. ``--trace PATH``
+also writes the Chrome trace. ``--model`` picks the problem, each at the
+width of a JAX bench configuration (bench.py):
 
 - ``logit_icar`` (default): ``LogitICARGibbs``, headline problem (config
   4: n = 1000, 64 chains), with ``--cg-impl``;
@@ -24,6 +28,7 @@ configuration (bench.py):
   problem, 32 chains.
 
     python3 scripts/torch_profile_step.py [--model logit_icar] [--steps 20]
+        [--eager]
 """
 
 import argparse
@@ -60,6 +65,8 @@ def main():
                     help='default: the configuration\'s chain count')
     ap.add_argument('--cg-impl', default='xla', choices=('xla', 'pallas'))
     ap.add_argument('--trace', default=None, help='Chrome trace output')
+    ap.add_argument('--eager', action='store_true',
+                    help='the host loop instead of the captured step')
     args = ap.parse_args()
 
     import torch
@@ -118,18 +125,21 @@ def main():
         else:
             s, chains = ProbitRSRGibbs(Q, W, X, y, random_state=3), 512
     chains = args.chains or chains
+    # one capture (at the warm-up) serves every run below
+    s.scan_chunk = max(args.warmup, args.steps)
+    run = s._run_eager if args.eager else s._run
     carry = s.init_carry(chains)
-    carry, _ = s._run(carry, args.warmup)
+    carry, _ = run(carry, args.warmup)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    carry, _ = s._run(carry, args.steps)
+    carry, _ = run(carry, args.steps)
     torch.cuda.synchronize()
     print(f'wall per step without the profiler '
           f'{(time.perf_counter() - t0) * 1e3 / args.steps:.3f} ms')
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        carry, _ = s._run(carry, args.steps)
+        carry, _ = run(carry, args.steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
@@ -138,18 +148,23 @@ def main():
                     for e in kernels])
     launches = sum(1 for e in events if e.name in (
         'cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
-        'cuLaunchKernelEx'))
+        'cuLaunchKernelEx', 'cudaLaunchCooperativeKernel', 'cudaGraphLaunch',
+        'cuGraphLaunch'))
+    ran = sum(1 for e in kernels
+              if not e.name.startswith(('Memcpy', 'Memset')))
     syncs = sum(1 for e in events if e.name in (
         'cudaStreamSynchronize', 'cudaDeviceSynchronize',
         'cudaEventSynchronize'))
     memcpy = sum(1 for e in events if e.name.startswith('cudaMemcpy'))
     per = 1.0 / args.steps  # event times are in microseconds
     print(f'model={args.model} cg_impl={args.cg_impl} chains={chains} '
-          f'steps={args.steps}')
+          f'steps={args.steps} runner='
+          f'{"eager" if args.eager or s._runs_eagerly() else "graph"}')
     print(f'wall per step {wall * 1e3 * per:.3f} ms, device busy per step '
           f'{busy / 1e3 * per:.3f} ms, idle share '
           f'{1.0 - busy / 1e6 / wall:.3f}')
-    print(f'per step: {launches / args.steps:.1f} launches, '
+    print(f'per step: {launches / args.steps:.1f} launches from the host, '
+          f'{ran / args.steps:.1f} kernels on the device, '
           f'{syncs / args.steps:.2f} synchronisations, '
           f'{memcpy / args.steps:.2f} memcpy calls')
     by_name = {}

@@ -71,13 +71,13 @@ def test_spectral_cg_matches_jax(system, iters, tau):
     # recursive residual (at tau=1e4 both solves read ~1e-17)
     _close(got[2].numpy(), want[2], floor=1e-2)
     # the K3 wrapper on CPU tensors is the plain solve
-    before = icar_cg_solve_cuda.launches
+    before = icar_cg_solve_cuda.counter.launches
     wrapped = icar_cg_solve_cuda(
         _t(system['rhs']), _t(system['warm']), _t(system['omega']),
         _t(taus), _t(system['u']), _t(system['s']), iters,
         return_resid=True,
     )
-    assert icar_cg_solve_cuda.launches == before
+    assert icar_cg_solve_cuda.counter.launches == before
     for g, w in zip(wrapped, got):
         assert torch.equal(g, w)
 

@@ -21,6 +21,7 @@ from occuspytial_tpu_torch import (
     ProbitRSRGibbs,
     rng,
 )
+from occuspytial_tpu_torch.models.base import GibbsBase
 from occuspytial_tpu_torch.ops import cg as tcg
 from occuspytial_tpu_torch.ops import polyagamma as tpg
 from occuspytial_tpu_torch.ops.cuda_cg import icar_cg_solve_cuda
@@ -29,6 +30,10 @@ from occuspytial_tpu_torch.ops.icar import icar_spectral, lattice_precision
 from occuspytial_tpu_torch.utils import make_data
 
 pytestmark = pytest.mark.cuda
+
+#: eager steps a sampler runs on clones before it captures its step: their
+#: kernel launches count (GibbsBase._graph_warmup_steps)
+WARM = GibbsBase._graph_warmup_steps
 
 
 @pytest.fixture
@@ -42,10 +47,10 @@ def test_pg_kernel_matches_plain(dev):
     sub = rng.words(rng.chain_keys(4, 8, rng.RUN, dev), 0, 0, 2)
     z = torch.linspace(-20.0, 20.0, 4034, device=dev).expand(8, 4034)
     z = z.contiguous()
-    before = pg_devroye_cuda.launches
+    before = pg_devroye_cuda.counter.launches
     got = pg_devroye_cuda(sub, z)
     torch.cuda.synchronize()
-    assert pg_devroye_cuda.launches == before + 1
+    assert pg_devroye_cuda.counter.launches == before + 1
     want = tpg.pg_devroye(sub, z)
     rel = ((got - want).abs() / want.abs()).cpu().numpy()
     # transcendental functions may round differently in the kernel and in
@@ -68,10 +73,10 @@ def test_pg_fused_entry_takes_z_and_strided_keys(dev, m):
     z = 6.0 * torch.randn((5, m), device=dev, generator=gen)
     z[0, 0] = 0.0
     z[-1, -1] = 80.0
-    before = pg_devroye_cuda.launches
+    before = pg_devroye_cuda.counter.launches
     got = pg_devroye_cuda(sub, z)
     torch.cuda.synchronize()
-    assert pg_devroye_cuda.launches == before + 1
+    assert pg_devroye_cuda.counter.launches == before + 1
     want = tpg.pg_devroye(sub.contiguous(), z)
     assert bool(torch.isfinite(got).all()) and bool((got > 0).all())
     rel = ((got - want).abs() / want.abs()).cpu().numpy()
@@ -94,10 +99,10 @@ def test_pg_kernel_lane_table(dev, m):
     z_full = 5.0 * torch.randn((4, total), device=dev, generator=gen)
     lanes = torch.randperm(total, device=dev, generator=gen)[:m]
     full = pg_devroye_cuda(sub, z_full)
-    before = pg_devroye_cuda.launches
+    before = pg_devroye_cuda.counter.launches
     got = pg_devroye_cuda(sub, z_full[:, lanes].contiguous(), lanes)
     torch.cuda.synchronize()
-    assert pg_devroye_cuda.launches == before + 1
+    assert pg_devroye_cuda.counter.launches == before + 1
     assert torch.equal(got, full[:, lanes])
     want = tpg.pg_devroye(sub, z_full[:, lanes], lanes)
     rel = ((got - want).abs() / want.abs()).cpu().numpy()
@@ -255,10 +260,10 @@ def test_cg_kernel_matches_plain(dev, tau):
         torch.as_tensor(s, dtype=torch.float32, device=dev),
         8,
     )
-    before = icar_cg_solve_cuda.launches
+    before = icar_cg_solve_cuda.counter.launches
     got = icar_cg_solve_cuda(*args, return_resid=True)
     torch.cuda.synchronize()
-    assert icar_cg_solve_cuda.launches == before + 1
+    assert icar_cg_solve_cuda.counter.launches == before + 1
     want = tcg.icar_cg_solve_spectral(*args, return_resid=True)
     # float32 sums in another order: 1e-4 of the largest entry; relative
     # residuals below 1e-6 are rounding and compare absolutely (the
@@ -302,9 +307,10 @@ def test_main_path_runs_and_is_reproducible(dev):
         s = LogitICARGibbs(Q, W, X, y, random_state=4, solver='cg',
                            cg_iters=15)
         assert s.pg_method == 'pallas_packed'
-        before = pg_devroye_cuda.launches
+        before = pg_devroye_cuda.counter.launches
         post = s.sample(20, chains=4, progressbar=False)
-        assert pg_devroye_cuda.launches == before + 21  # + cold check
+        # 20 replays, the warm-up step and the cold-start check
+        assert pg_devroye_cuda.counter.launches == before + 20 + WARM + 1
         draws.append(post)
     for name in ('alpha', 'beta', 'tau'):
         assert np.isfinite(draws[0][name]).all()
@@ -335,9 +341,9 @@ def test_logit_rsr_launches_the_pg_kernel_once_per_step(dev):
         assert s.pg_method == 'pallas_packed' and not s._solves_lambda
         return s
 
-    before = pg_devroye_cuda.launches
+    before = pg_devroye_cuda.counter.launches
     post = _run_twice(make, 20, 4)
-    assert pg_devroye_cuda.launches == before + 2 * 20
+    assert pg_devroye_cuda.counter.launches == before + 2 * (20 + WARM)
     assert post['beta'].shape == (4, 20, 3)
 
 
@@ -348,10 +354,10 @@ def test_probit_samplers_run_and_are_reproducible(dev, cls, collapsed):
     from torch ops alone, bit for bit the same twice."""
     Q, W, X, y, *_ = make_lattice_dataset(10, 10, ns=50, seed=3)
     sampler = {'icar': ProbitICARGibbs, 'rsr': ProbitRSRGibbs}[cls]
-    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
     _run_twice(lambda: sampler(Q, W, X, y, random_state=4,
                                collapsed=collapsed), 10, 8)
-    assert (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches) == before
+    assert (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches) == before
 
 
 # ---------------------- the large-n eta regimes ------------------------ #
@@ -449,10 +455,10 @@ def test_large_n_logit_launches_the_pg_kernel_and_is_reproducible(dev,
         assert s.solver == regime and s.pg_method == 'pallas_packed'
         return s
 
-    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
     post = _run_twice(make, 12, 8)
-    assert pg_devroye_cuda.launches == before[0] + 2 * 13
-    assert icar_cg_solve_cuda.launches == before[1]
+    assert pg_devroye_cuda.counter.launches == before[0] + 2 * (12 + WARM + 1)
+    assert icar_cg_solve_cuda.counter.launches == before[1]
     assert post['beta'].shape == (8, 12, 3)
 
 
@@ -464,10 +470,10 @@ def test_large_n_probit_runs_and_is_reproducible(dev, regime):
     kw = (dict(lattice=(20, 30, 8)) if regime == 'stencil'
           else dict(solver='graph'))
     q_in = sps.csr_matrix(Q) if regime == 'graph' else Q
-    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
     _run_twice(lambda: ProbitICARGibbs(q_in, W, X, y, random_state=4, **kw),
                10, 8)
-    assert (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches) == before
+    assert (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches) == before
 
 
 def test_sample_parallel_two_workers_on_one_card(dev):
@@ -478,10 +484,12 @@ def test_sample_parallel_two_workers_on_one_card(dev):
     Q, W, X, y, *_ = make_data(n=150, ns=100, p=3, q=2, random_state=10)
     s = LogitICARGibbs(Q, W, X, y, random_state=4, solver='cg',
                        cg_impl='pallas', cg_iters=15)
-    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
     post = sample_parallel(s, size=6, chains=8, mesh=['cuda:0'] * 2)
-    assert pg_devroye_cuda.launches == before[0] + 1 + 2 * 6
-    assert icar_cg_solve_cuda.launches == before[1] + 1 + 2 * 3 * 6
+    # each worker captures its step after one warm-up step
+    assert pg_devroye_cuda.counter.launches == before[0] + 1 + 2 * (6 + WARM)
+    assert icar_cg_solve_cuda.counter.launches == (before[1] + 1
+                                           + 2 * 3 * (6 + WARM))
     assert s.final_carry.keys.device.type == 'cuda'
     local = s.sample(6, chains=8, progressbar=False)
     for name in ('alpha', 'beta', 'tau'):
@@ -610,10 +618,10 @@ def test_sample_parallel_2d_gloo_on_one_card(dev):
                               lattice=(20, 30, 8))
 
     s = make()
-    before = pg_devroye_cuda.launches
+    before = pg_devroye_cuda.counter.launches
     post = sample_parallel_2d(s, 6, mesh_2d(1, 2, ['cuda:0'] * 2),
                               chains=4)
-    assert pg_devroye_cuda.launches == before + 1 + 2 * 6
+    assert pg_devroye_cuda.counter.launches == before + 1 + 2 * 6
     assert s.final_carry.keys.device.type == 'cuda'
     local = make().sample(6, chains=4, progressbar=False)
     for name in ('alpha', 'beta'):
@@ -637,12 +645,12 @@ def test_sample_parallel_2d_dense_cg_kernel_on_one_card(dev):
                               cg_iters=15, cg_impl='pallas')
 
     s = make()
-    before = (pg_devroye_cuda.launches, icar_cg_solve_cuda.launches)
+    before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
     post = sample_parallel_2d(s, 6, mesh_2d(1, 2, ['cuda:0'] * 2),
                               chains=4)
     # the parent's cold-start check launches each kernel once
-    assert pg_devroye_cuda.launches == before[0] + 1 + 2 * 6
-    assert icar_cg_solve_cuda.launches == before[1] + 1 + 2 * 3 * 6
+    assert pg_devroye_cuda.counter.launches == before[0] + 1 + 2 * 6
+    assert icar_cg_solve_cuda.counter.launches == before[1] + 1 + 2 * 3 * 6
     assert s.last_solver_resid < s.solver_check_tol
     local = make().sample(6, chains=4, progressbar=False)
     for name in ('alpha', 'beta'):
@@ -708,3 +716,179 @@ def test_graph_band_operators_on_the_card(dev, block):
         np.testing.assert_allclose(got, ref, rtol=0,
                                    atol=1e-5 * np.abs(ref).max(),
                                    err_msg=name)
+
+
+# ------------------- the captured step (the graph runner) --------------- #
+
+def test_kernels_count_their_launches_in_replays_of_a_captured_graph(dev):
+    """Each kernel's device counter counts every launch that runs: a
+    capture adds nothing to it (only to ``recorded``) and each replay of
+    the graph adds its launches."""
+    sub = rng.words(rng.chain_keys(4, 8, rng.RUN, dev), 0, 0, 2)
+    z = torch.linspace(-5.0, 5.0, 300, device=dev).expand(8, 300)
+    z = z.contiguous()
+    s_np, u_np, _ = icar_spectral(
+        lattice_precision(6, 6).toarray().astype(np.float64))
+    u = torch.as_tensor(u_np, dtype=torch.float32, device=dev)
+    s_eig = torch.as_tensor(s_np, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rhs = torch.randn(8, 2, 36, device=dev, generator=gen)
+    omega = torch.rand(8, 36, device=dev, generator=gen) + 0.1
+    tau = torch.full((8,), 2.0, device=dev)
+    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter)
+
+    def body():
+        icar_cg_solve_cuda(rhs, torch.zeros_like(rhs), omega, tau, u,
+                           s_eig, 4)
+        return pg_devroye_cuda(sub, z)
+
+    want = body()
+    torch.cuda.synchronize()
+    recorded = [c.recorded for c in counters]
+    for c in counters:
+        c.launches = 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = body()
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [0, 0]
+    assert [c.recorded - r for c, r in zip(counters, recorded)] == [1, 1]
+    for _ in range(5):
+        graph.replay()
+    assert [c.launches for c in counters] == [5, 5]
+    assert torch.equal(got, want)
+
+
+def _graph_cases():
+    """Every one-process path of chip_smoke.py phases 5-12 (the cases of
+    :func:`_invariance_cases`), the logit ``'chol'`` regime and the
+    truncated-series Pólya-Gamma draw, at small widths."""
+    def head():
+        return make_data(n=150, ns=100, p=3, q=2, random_state=10)[:4]
+
+    cases = dict(_invariance_cases())
+    cases['logit-chol'] = lambda: LogitICARGibbs(*head(), random_state=4,
+                                                 solver='chol')
+    cases['logit-pg-gamma'] = lambda: LogitICARGibbs(
+        *head(), random_state=4, solver='cg', cg_iters=15,
+        pg_method='gamma')
+    return cases
+
+
+@pytest.mark.parametrize('case', list(_graph_cases()))
+def test_graph_runner_matches_the_eager_loop(dev, case):
+    """Eight replays of the captured step give the host loop's draws,
+    recorded fields and final carry, bit for bit."""
+    s = _graph_cases()[case]()
+    assert not s._runs_eagerly()
+    s.track = ('eta', 'z')
+    carry = s.init_carry(4)
+    want_carry, want = s._run_eager(carry, 8)
+    got_carry, got = s._graph_runner(carry, 8).run(carry, 8)
+    for name, val in want.items():
+        assert torch.equal(got[name], val), name
+    assert got_carry.step == want_carry.step == 8
+    assert torch.equal(got_carry.keys, want_carry.keys)
+    for name, val in want_carry.states.items():
+        assert torch.equal(got_carry.states[name], val), name
+
+
+def _small_cg_sampler():
+    Q, W, X, y, *_ = make_data(n=150, ns=100, p=3, q=2, random_state=10)
+    return LogitICARGibbs(Q, W, X, y, random_state=4, solver='cg',
+                          cg_iters=15, cg_impl='pallas')
+
+
+def test_graph_replays_advance_the_step(dev):
+    """Each replay draws the next step's words: a run cut into chunks of
+    5 (5, 5, 5, 1 replays of the graph captured for the whole run) is the
+    whole run, and K1/K3 count once per replay."""
+    s = _small_cg_sampler()
+    whole = s.sample(16, chains=4, progressbar=False)
+    carry = s.final_carry
+    runner = s._graph_runners[(4, ())]
+    assert runner.per_replay == [1, 3]
+    s.scan_chunk = 5
+    before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
+    cut = s.sample(16, chains=4, progressbar=False)
+    assert s._graph_runners[(4, ())] is runner
+    # the cold-start check ran once; no warm-up: the graph is cached
+    assert (pg_devroye_cuda.counter.launches - before[0],
+            icar_cg_solve_cuda.counter.launches - before[1]) == (16, 48)
+    for name in ('alpha', 'beta', 'tau'):
+        np.testing.assert_array_equal(cut[name], whole[name])
+    for name, val in carry.states.items():
+        assert torch.equal(s.final_carry.states[name], val), name
+
+
+def test_resume_and_sample_until_reuse_one_graph(dev):
+    """``resume_from`` and every block of ``sample_until`` load the carry
+    into the same captured step; the carry a run leaves is a copy that a
+    later run does not overwrite; a resumed run is one longer run."""
+    s = _small_cg_sampler()
+    first = s.sample(8, chains=4, progressbar=False)
+    kept = s.final_carry
+    kept_tau = kept.states['tau'].clone()
+    graph = s._graph_runners[(4, ())].graph
+    second = s.sample(8, chains=4, progressbar=False, resume_from=kept)
+    assert s._graph_runners[(4, ())].graph is graph
+    assert torch.equal(kept.states['tau'], kept_tau)
+    one = _small_cg_sampler().sample(16, chains=4, progressbar=False)
+    for name in ('alpha', 'beta', 'tau'):
+        np.testing.assert_array_equal(
+            np.concatenate([first[name], second[name]], axis=1), one[name])
+    with pytest.raises(RuntimeError, match='no convergence'):
+        s.sample_until(rhat_tol=1.0 + 1e-9, chains=4, check_every=8,
+                       max_size=16)
+    assert s._graph_runners[(4, ())].graph is graph
+
+
+def test_tracked_run_holds_one_chunk_on_the_card(dev):
+    """``track=('eta',)`` at config 5 (10,000 sites, 32 chains, 1024
+    draws: 1.31 GB of eta) keeps at most one 256 MB chunk of it on the
+    card: the peak stays within the untracked run's plus the budget."""
+    import gc
+
+    Q, W, X, y, *_ = make_lattice_dataset(100, 100, ns=5000, seed=11,
+                                          min_v=2, max_v=5)
+    peaks, budget = {}, GibbsBase._auto_chunk_output_budget
+    for track in ((), ('eta',)):
+        s = LogitICARGibbs(Q, W, X, y, random_state=11,
+                           lattice=(100, 100, 8))
+        s.track = track
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        post = s.sample(1024, chains=32, progressbar=False)
+        torch.cuda.synchronize()
+        peaks[track] = torch.cuda.max_memory_allocated()
+        if track:
+            assert s._graph_runners[(32, track)].length == budget // (
+                32 * 10000 * 4)
+            assert post['eta'].shape == (32, 1024, 10000)
+            assert np.isfinite(post['eta'][:, -1]).all()
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert peaks[('eta',)] <= peaks[()] + budget, peaks
+
+
+def test_a_step_that_reads_back_makes_the_run_raise(dev, monkeypatch):
+    """A step that reads a value back to the host cannot be captured: the
+    run raises, and nothing runs in the host loop instead."""
+    s = _small_cg_sampler()
+    step = s._step
+
+    def reading_step(keys, t, state, fixed):
+        out = step(keys, t, state, fixed)
+        float(out['tau'].sum())
+        return out
+
+    eager = []
+    monkeypatch.setattr(s, '_step', reading_step)
+    monkeypatch.setattr(s, '_run_eager',
+                        lambda *a, **k: eager.append(a))
+    with pytest.raises(RuntimeError):
+        s.sample(4, chains=2, progressbar=False)
+    assert not eager and not s._graph_runners
+    assert not hasattr(s, 'final_carry')
+    torch.cuda.synchronize()

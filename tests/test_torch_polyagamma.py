@@ -210,9 +210,9 @@ def test_pg_gamma_mean():
 def test_kernel_wrapper_on_cpu_is_the_plain_sampler():
     sub = rng.words(rng.chain_keys(4, 3, rng.RUN), 0, 0, 2)
     z = torch.linspace(-6.0, 6.0, 777).expand(3, 777).contiguous()
-    before = pg_devroye_cuda.launches
+    before = pg_devroye_cuda.counter.launches
     assert torch.equal(pg_devroye_cuda(sub, z), tpg.pg_devroye(sub, z))
-    assert pg_devroye_cuda.launches == before
+    assert pg_devroye_cuda.counter.launches == before
 
 
 def test_lane_table_draws_the_full_width_lanes():
