@@ -17,7 +17,9 @@ card) and ``parallel.sample_parallel_2d`` (over a chains x sites mesh
 of ranks: both ICAR samplers' lattice and graph regimes, then the dense
 regimes and the RSR samplers), then holds the captured Gibbs step (the
 default runner on the card, a CUDA graph replayed once a step) against
-the host loop on every one-process path, and prints one
+the host loop on every one-process path and in the ranks of an NCCL 2-D
+run (whose captured band step holds its all-reduces), with a tracked
+2-D run that keeps one chunk of draws on the card, and prints one
 JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero without
 that line; it also fails without CUDA. ``--stop-after N`` ends
@@ -81,6 +83,9 @@ DENSE_CHOL_CHAINS = 4
 # phase 18: the captured step against the host loop, steps each way, and
 # the replays traced by torch.profiler
 GRAPH_STEPS, GRAPH_PROFILE_STEPS = 32, 8
+# phase 19: sample_parallel_2d under NCCL, captured against the host loop
+# (GRAPH_STEPS each way), and a track-ed config 5 run (1.31 GB of eta)
+TRACK_SIZE = 1024
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor
 #: op/s, dense TF32 tensor-core op/s
@@ -214,7 +219,7 @@ def warmup_steps():
 
 def eager_reference(s, size, chains):
     """``s.sample(size, chains=chains)`` through the host loop
-    (``_run_eager``), the loop a 2-D rank runs: the draws as
+    (``_run_eager``), the loop a gloo or timed 2-D rank runs: the draws as
     {name: (chains, size[, dim])} and ``s.final_carry`` set."""
     carry, out = s._run_eager(s.init_carry(chains), size)
     s.final_carry = carry
@@ -580,6 +585,29 @@ def graph_reused(built):
         graph.build = build
 
 
+def two_d_meshes():
+    """The meshes of phases 15-19: ``'gloo'`` 1 x 4 ranks on cuda:0,
+    ``'gloo1'`` one gloo rank, ``'nccl'`` one NCCL rank a card and
+    ``'nccl1'`` one NCCL rank (the same mesh on one card). Used in a
+    ``with`` block, each keeps its ranks up from one run to the next."""
+    import torch
+
+    from occuspytial_tpu_torch.parallel import mesh_2d
+
+    n_cards = torch.cuda.device_count()
+    meshes = {
+        'gloo': mesh_2d(1, TWO_D_SITES, ['cuda:0'] * TWO_D_SITES),
+        'gloo1': mesh_2d(1, 1, ['cuda:0'], backend='gloo'),
+        'nccl': mesh_2d(1, n_cards),
+    }
+    meshes['nccl1'] = (meshes['nccl'] if n_cards == 1
+                       else mesh_2d(1, 1, ['cuda:0']))
+    check([m.backend for m in meshes.values()]
+          == ['gloo', 'gloo', 'nccl', 'nccl'],
+          f'mesh backends: {meshes}')
+    return meshes
+
+
 def two_d_samplers(dev, regime, graph_built=None):
     """Phase 15's or 16's two samplers (logit, probit) on config 5 or 5g,
     each with its build seconds: cls -> (sampler, seconds). On config 5g
@@ -606,7 +634,7 @@ def two_d_samplers(dev, regime, graph_built=None):
             for cls in (LogitICARGibbs, ProbitICARGibbs)}
 
 
-def two_d_phase(dev, card, counters, regime, graph_built=None):
+def two_d_phase(dev, card, counters, meshes, regime, graph_built=None):
     """Phase 15 (``regime='stencil'``) or 16 (``'graph'``):
     ``sample_parallel_2d`` at the full width of config 5 (the 100 x 100
     lattice, 32 chains, phase 10's seed) or config 5g (the same lattice as
@@ -614,14 +642,17 @@ def two_d_phase(dev, card, counters, regime, graph_built=None):
     blocks, 10 a rank) against the same runs in one process. Each family's
     sampler is built once; every run takes a shallow copy of it, whose
     cold-start solver check has not run (``.copy()`` would reseed). On
-    config 5g both take phase 14's graph build (``graph_built``). Returns
-    K1's launches in (a)."""
+    config 5g both take phase 14's graph build (``graph_built``). The
+    runs go over ``meshes`` (:func:`two_d_meshes`). The NCCL run (c)
+    replays each rank's captured band step; the gloo runs and the timed
+    runs loop on the host. Returns K1's launches in (a) and the two
+    samplers, cls -> sampler."""
     import copy
 
     import torch
 
     from occuspytial_tpu_torch import LogitICARGibbs, ProbitICARGibbs
-    from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
+    from occuspytial_tpu_torch.parallel import sample_parallel_2d
 
     graph = regime == 'graph'
     chains = LARGE_CHAINS[regime]
@@ -658,6 +689,10 @@ def two_d_phase(dev, card, counters, regime, graph_built=None):
         post = sample_parallel_2d(s, TWO_D_STEPS, mesh, chains=chains,
                                   timed=timed)
         launches = [c.launches for c in counters]
+        captured = mesh.backend == 'nccl' and not timed
+        check(all(r['captured'] == captured for r in s.rank_runs),
+              f'{mesh.backend} ranks, timed={timed}: captured '
+              f'{[r["captured"] for r in s.rank_runs]}')
         check_posterior(post, chains, TWO_D_STEPS,
                         {'alpha': 3, 'beta': 3, 'tau': 0})
         check_state(s.final_carry)
@@ -681,8 +716,8 @@ def two_d_phase(dev, card, counters, regime, graph_built=None):
             worst = max(worst, float(np.abs(post[name] - want[name]).max()))
         return worst
 
-    # the references run the host loop, as the ranks do (phase 18 holds
-    # the captured step against it)
+    # the references run the host loop, as the gloo ranks do (phases 18
+    # and 19 hold the captured step against it)
     ref, ref_ms, ref_carry = {}, {}, {}
     for cls in (LogitICARGibbs, ProbitICARGibbs):
         s = make(cls)
@@ -693,8 +728,7 @@ def two_d_phase(dev, card, counters, regime, graph_built=None):
         torch.cuda.synchronize()
         ref_ms[cls] = 1e3 * (time.perf_counter() - ts) / TWO_D_STEPS
         ref_carry[cls] = s.final_carry
-    gloo = mesh_2d(1, TWO_D_SITES, ['cuda:0'] * TWO_D_SITES)
-    check(gloo.backend == 'gloo', 'a mesh of ranks on one card is gloo')
+    gloo = meshes['gloo']
 
     # (a) logit, 1 x 4, gloo, four ranks on cuda:0
     s, post_a, (pg_a, cg_a), ms_a, drift = run(LogitICARGibbs, gloo)
@@ -710,8 +744,7 @@ def two_d_phase(dev, card, counters, regime, graph_built=None):
           f'{drift:.2e}, last_solver_resid {s.last_solver_resid:.3e}, max '
           f'|diff| against one process {diff:.3e} (rtol 2e-3, atol 2e-4)')
     # (b) one rank: the band is the field
-    one = mesh_2d(1, 1, ['cuda:0'], backend='gloo')
-    s_b, post_b, _, ms_b, _ = run(LogitICARGibbs, one)
+    s_b, post_b, _, ms_b, _ = run(LogitICARGibbs, meshes['gloo1'])
     same = all(np.array_equal(post_b[k], ref[LogitICARGibbs][k])
                for k in ('alpha', 'beta', 'tau'))
     same = same and all(
@@ -721,16 +754,17 @@ def two_d_phase(dev, card, counters, regime, graph_built=None):
           f'{"bit-identical" if same else "differ"} to one process')
     check(same, 'a 1 x 1 mesh differs from one process')
     # (c) NCCL, one rank a card
-    nccl = mesh_2d(1, n_cards)
-    check(nccl.backend == 'nccl', f'mesh over the cards: {nccl}')
+    nccl = meshes['nccl']
     _, post_c, (pg_c, _), ms_c, _ = run(LogitICARGibbs, nccl)
-    check(pg_c == n_cards * TWO_D_STEPS + 1, f'NCCL K1 launches {pg_c}')
+    # each rank's warm-up step, then one a replay
+    check(pg_c == n_cards * (TWO_D_STEPS + warmup_steps()) + 1,
+          f'NCCL K1 launches {pg_c}')
     diff_c = close(post_c, post_a, ('alpha', 'beta', 'tau'), '(c) vs (a)')
     diff_cl = close(post_c, ref[LogitICARGibbs], ('alpha', 'beta', 'tau'),
                     '(c) vs one process')
-    print(f'    (c) logit, {nccl.shape}, NCCL over {n_cards} card(s): max '
-          f'|diff| against (a) {diff_c:.3e}, against one process '
-          f'{diff_cl:.3e}')
+    print(f'    (c) logit, {nccl.shape}, NCCL over {n_cards} card(s), the '
+          f'captured band step: K1 {pg_c} launches, max |diff| against (a) '
+          f'{diff_c:.3e}, against one process {diff_cl:.3e}')
     # (d) probit
     _, post_d, (pg_d, _), ms_d, drift = run(ProbitICARGibbs, gloo)
     check(pg_d == 0, 'the probit path launched the PG kernel')
@@ -773,10 +807,10 @@ def two_d_phase(dev, card, counters, regime, graph_built=None):
                           for k, v in sorted(by.items()))
               + f'; all all-reduces {coll:.3f}')
     done(t0)
-    return pg_a
+    return pg_a, built
 
 
-def dense_2d_phase(dev, card, counters, head, lattice):
+def dense_2d_phase(dev, card, counters, meshes, head, lattice):
     """Phase 17: ``sample_parallel_2d`` for the dense eta regimes and the
     RSR samplers, each case at the width of its bench configuration
     (``head``: config 4's data, ``lattice``: configs 1, 2 and 2b's),
@@ -787,8 +821,9 @@ def dense_2d_phase(dev, card, counters, head, lattice):
     one process within rtol 2e-3 / atol 2e-4 at every step, unless it
     leaves that tolerance after an exact accept decision of K1 flipped
     (:func:`flipped` inside: the rounding of the partitioned sums moved a
-    lane's input across a rejection boundary). Returns K1's and K3's
-    launches in (a)."""
+    lane's input across a rejection boundary). The timed ranks loop on
+    the host. Returns K1's and K3's launches in (a) and the samplers,
+    case -> sampler."""
     import copy
 
     import torch
@@ -800,7 +835,7 @@ def dense_2d_phase(dev, card, counters, head, lattice):
         ProbitRSRGibbs,
     )
     from occuspytial_tpu_torch.ops.sites import lincomb
-    from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
+    from occuspytial_tpu_torch.parallel import sample_parallel_2d
 
     t0 = phase(f'17 sample_parallel_2d: the dense regimes and the RSR '
                f'samplers at their bench widths, {TWO_D_STEPS} steps, '
@@ -830,8 +865,8 @@ def dense_2d_phase(dev, card, counters, head, lattice):
         s.init_carry(1)  # the cold-start check, outside the timing
         torch.cuda.synchronize()
         ts = time.perf_counter()
-        # the host loop, as the ranks run it (phase 18 holds the captured
-        # step against it)
+        # the host loop, as the timed ranks run it (phases 18 and 19 hold
+        # the captured step against it)
         ref[k] = eager_reference(s, TWO_D_STEPS, cases[k][4])
         torch.cuda.synchronize()
         ref_ms[k] = 1e3 * (time.perf_counter() - ts) / TWO_D_STEPS
@@ -845,6 +880,8 @@ def dense_2d_phase(dev, card, counters, head, lattice):
         post = sample_parallel_2d(s, TWO_D_STEPS, mesh, chains=cases[k][4],
                                   timed=True)
         launches = [c.launches for c in counters]
+        check(not any(r['captured'] for r in s.rank_runs),
+              f'17({k}): a timed rank replayed a captured step')
         check_posterior(post, cases[k][4], TWO_D_STEPS,
                         {'alpha': s.n_alpha, 'beta': s.n_beta, 'tau': 0})
         check_state(s.final_carry)
@@ -949,8 +986,7 @@ def dense_2d_phase(dev, card, counters, head, lattice):
                           for lab, v in sorted(shares.items()))
               + f'; all {sum(shares.values()):.3f}')
 
-    gloo = mesh_2d(1, TWO_D_SITES, ['cuda:0'] * TWO_D_SITES)
-    check(gloo.backend == 'gloo', 'a mesh of ranks on one card is gloo')
+    gloo = meshes['gloo']
     steps = TWO_D_SITES * TWO_D_STEPS
     # (a) the headline problem, K3 in every rank on its row's field
     s, post, (pg_a, cg_a) = run('a', gloo)
@@ -960,8 +996,7 @@ def dense_2d_phase(dev, card, counters, head, lattice):
     show('a', "LogitICARGibbs 'cg', cg_impl='pallas', config 4, "
               f'{CHAINS} chains', s, post, (pg_a, cg_a), gloo)
     # (b) one rank: the band is the field, under gloo and under NCCL
-    for mesh in (mesh_2d(1, 1, ['cuda:0'], backend='gloo'),
-                 mesh_2d(1, 1, ['cuda:0'])):
+    for mesh in (meshes['gloo1'], meshes['nccl1']):
         s_b, post_b, (pg_b, cg_b) = run('a', mesh)
         check((pg_b, cg_b) == (1 + TWO_D_STEPS, 1 + 3 * TWO_D_STEPS),
               f'17(b) launches {pg_b}, {cg_b}')
@@ -995,7 +1030,7 @@ def dense_2d_phase(dev, card, counters, head, lattice):
               f'17({k}) launches {launches} != {[want_pg, want_cg]}')
         show(k, label, s, post, launches, gloo)
     done(t0)
-    return pg_a, cg_a
+    return pg_a, cg_a, built
 
 
 def graph_phase(dev, card, paths, lattice):
@@ -1010,7 +1045,7 @@ def graph_phase(dev, card, paths, lattice):
     name), by the kernels' own device counters, and as recorded into the
     graph. Every path is printed before a failure raises."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from occuspytial_tpu_torch import LogitICARGibbs
     from occuspytial_tpu_torch.models.base import KERNEL_COUNTERS
@@ -1050,11 +1085,19 @@ def graph_phase(dev, card, paths, lattice):
         pairs = [(o_g[k], o_e[k]) for k in o_e] + [(c_g.keys, c_e.keys)] + [
             (c_g.states[k], v) for k, v in c_e.states.items()]
         same = all(torch.equal(a, b) for a, b in pairs)
-        for c in KERNEL_COUNTERS:
-            c.launches = 0
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # one replay with the tracer on and its events dropped: the first
+        # kernels after the tracer starts may go unrecorded
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            runner.run(carry, 1)
+            torch.cuda.synchronize()
+            prof.step()
+            for c in KERNEL_COUNTERS:
+                c.launches = 0
             runner.run(carry, GRAPH_PROFILE_STEPS)
             torch.cuda.synchronize()
+            prof.step()
         counted = [c.launches / GRAPH_PROFILE_STEPS for c in KERNEL_COUNTERS]
         kernels = [e.name for e in prof.events()
                    if e.device_type.name == 'CUDA'
@@ -1083,6 +1126,117 @@ def graph_phase(dev, card, paths, lattice):
               f'{runner.per_replay[0]}, {runner.per_replay[1]})')
     check(not failed, '; '.join(failed))
     done(t0)
+
+
+def nccl_graph_phase(dev, card, counters, nccl, regimes):
+    """Phase 19: ``sample_parallel_2d`` under NCCL, one rank a card
+    (``nccl``: ``mesh_2d(1, n_cards)``), each rank replaying its band
+    step captured as one CUDA graph with its all-reduces inside, against
+    the same run in the host loop (``_force_eager``): :data:`GRAPH_STEPS`
+    steps each way per regime (``regimes``: label -> (sampler, chains,
+    K1 and K3 launches a step, the cold-start check's)), draws and final
+    carry bit for bit, ms a step of each runner, the capture's seconds,
+    and K1's and K3's launches: the warm-up step's and ``per_replay`` x
+    ``replays`` in every rank, plus the parent's cold-start check. Then a
+    ``track=('eta',)`` run of phase 15's logit sampler at
+    :data:`TRACK_SIZE` draws: its rank's peak card memory within the
+    untracked captured run's plus the 256 MB budget plus 32 MB. Returns
+    K1's and K3's launches over the captured runs."""
+    import copy
+
+    import torch
+
+    from occuspytial_tpu_torch.models.base import GibbsBase
+    from occuspytial_tpu_torch.parallel import sample_parallel_2d
+
+    n_cards = torch.cuda.device_count()
+    t0 = phase(f'19 sample_parallel_2d, NCCL over {n_cards} card(s): the '
+               f'captured band step against the host loop, {GRAPH_STEPS} '
+               f'steps each way ({card})')
+    warm = warmup_steps()
+
+    def run(s0, chains, size, eager=False, track=()):
+        s = copy.copy(s0)
+        s.track, s._force_eager = track, eager
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        post = sample_parallel_2d(s, size, nccl, chains=chains)
+        launches = [c.launches for c in counters]
+        check(all(r['captured'] != eager for r in s.rank_runs),
+              f'captured {[r["captured"] for r in s.rank_runs]}, '
+              f'eager={eager}')
+        check_state(s.final_carry)
+        ms = 1e3 * max(float(np.mean(t[2:])) for t in s.rank_step_seconds)
+        return s, post, launches, ms
+
+    failed, total = [], [0, 0]
+    untracked = None
+    for label, (s0, chains, per_step, cold) in regimes.items():
+        s_g, post_g, got_g, ms_g = run(s0, chains, GRAPH_STEPS)
+        s_e, post_e, got_e, ms_e = run(s0, chains, GRAPH_STEPS, eager=True)
+        total = [a + b for a, b in zip(total, got_g)]
+        if label == 'logit stencil':
+            untracked = max(r['peak_bytes'] for r in s_g.rank_runs)
+        pairs = [(post_g[k], post_e[k]) for k in ('alpha', 'beta', 'tau')]
+        pairs += [(s_g.final_carry.keys.cpu().numpy(),
+                   s_e.final_carry.keys.cpu().numpy())]
+        pairs += [(s_g.final_carry.states[k].cpu().numpy(), v.cpu().numpy())
+                  for k, v in s_e.final_carry.states.items()]
+        same = all(np.array_equal(a, b, equal_nan=True) for a, b in pairs)
+        if same:
+            bits = 'draws and final carry bit-identical'
+        else:
+            diff = max(float(np.abs(a.astype(np.float64) - b).max())
+                       for a, b in pairs if a.dtype.kind == 'f')
+            bits = f'NOT bit-identical, max |diff| {diff:.3e}'
+            failed.append(f'{label}: {bits}')
+        runs = s_g.rank_runs
+        replays = [r['replays'] for r in runs]
+        per_replay = [r['per_replay'] for r in runs]
+        want_g = [n_cards * (GRAPH_STEPS + warm) * k + c
+                  for k, c in zip(per_step, cold)]
+        want_e = [n_cards * GRAPH_STEPS * k + c
+                  for k, c in zip(per_step, cold)]
+        if (per_replay != [list(per_step)] * n_cards
+                or replays != [GRAPH_STEPS] * n_cards
+                or got_g != want_g or got_e != want_e):
+            failed.append(f'{label}: K1, K3 launches captured {got_g} '
+                          f'(want {want_g}), eager {got_e} (want {want_e}); '
+                          f'per replay {per_replay}, replays {replays}')
+        capture = max(r['capture_seconds'] for r in runs)
+        print(f'    {label}, {chains} chains: {bits}; ms a step (steps '
+              f'3-{GRAPH_STEPS}, the slowest rank) eager {ms_e:.3f}, '
+              f'captured {ms_g:.3f} ({ms_e / ms_g:.2f}x); capture '
+              f'{capture:.3f} s; K1, K3 launches captured {got_g} = '
+              f'{n_cards} rank(s) x ({GRAPH_STEPS} replays + {warm} warm-up) '
+              f'x {per_replay[0]} a replay + {list(cold)} cold-start check, '
+              f'eager {got_e}')
+    check(not failed, '; '.join(failed))
+
+    # the track-ed run: one chunk of eta on the card at a time
+    s_t, post_t, _, _ = run(regimes['logit stencil'][0],
+                            regimes['logit stencil'][1], TRACK_SIZE,
+                            track=('eta',))
+    chains = regimes['logit stencil'][1]
+    n = s_t.n
+    check(post_t['eta'].shape == (chains, TRACK_SIZE, n)
+          and np.isfinite(post_t['eta'][:, -1]).all(),
+          f'tracked eta {post_t["eta"].shape}')
+    budget = GibbsBase._auto_chunk_output_budget
+    chunk = budget // (chains * n * 4)
+    peak = max(r['peak_bytes'] for r in s_t.rank_runs)
+    whole = chains * n * 4 * TRACK_SIZE
+    print(f'    track=("eta",), {TRACK_SIZE} draws ({whole / 1e9:.2f} GB of '
+          f'eta over the run, {chunk}-draw chunks): rank peak '
+          f'{peak / 2**20:.1f} MiB against {untracked / 2**20:.1f} MiB '
+          f'untracked (captured, {GRAPH_STEPS} draws); the bound adds '
+          f'{budget / 2**20:.0f} MiB + 32 MiB')
+    check(peak <= untracked + budget + (32 << 20),
+          f'tracked 2-D peak {peak} > {untracked} + {budget} + 32 MiB')
+    del post_t
+    done(t0)
+    return total
 
 
 def large_n_phases(dev, kind, card, counters):
@@ -1692,19 +1846,42 @@ def main():
     graph_5g = sharded_phase(dev, card)
     if args.stop_after < 15:
         return
-    two_d_pg = two_d_phase(dev, card, counters, 'stencil')
-    if args.stop_after < 16:
-        return
-    two_d_graph_pg = two_d_phase(dev, card, counters, 'graph', graph_5g)
-    if args.stop_after < 17:
-        return
-    dense_pg, dense_cg = dense_2d_phase(dev, card, counters, (Q, W, X, y),
-                                        (Q2, W2, X2, y2))
-    if args.stop_after < 18:
-        return
-    graph_phase(dev, card, paths, (Q2, W2, X2, y2))
+    # phases 15-19 run over four meshes whose ranks stay up from one run to
+    # the next (a rank takes ~10 s to start on the card machine)
+    meshes = two_d_meshes()
+    with contextlib.ExitStack() as held:
+        for mesh in {id(m): m for m in meshes.values()}.values():
+            held.enter_context(mesh)
+        two_d_pg, lattice_2d = two_d_phase(dev, card, counters, meshes,
+                                           'stencil')
+        if args.stop_after < 16:
+            return
+        two_d_graph_pg, graph_2d = two_d_phase(dev, card, counters, meshes,
+                                               'graph', graph_5g)
+        if args.stop_after < 17:
+            return
+        dense_pg, dense_cg, dense_2d = dense_2d_phase(
+            dev, card, counters, meshes, (Q, W, X, y), (Q2, W2, X2, y2))
+        if args.stop_after < 18:
+            return
+        graph_phase(dev, card, paths, (Q2, W2, X2, y2))
+        if args.stop_after < 19:
+            return
+        # label: (sampler, chains, K1 and K3 a step, the cold-start check's)
+        nccl_pg, nccl_cg = nccl_graph_phase(dev, card, counters,
+                                            meshes['nccl'], {
+            'logit stencil': (lattice_2d[LogitICARGibbs],
+                              LARGE_CHAINS['stencil'], (1, 0), (1, 0)),
+            'logit graph': (graph_2d[LogitICARGibbs], LARGE_CHAINS['graph'],
+                            (1, 0), (1, 0)),
+            "logit 'cg' cg_impl='pallas'": (dense_2d['a'], CHAINS, (1, 3),
+                                            (1, 1)),
+            'logit RSR': (dense_2d['d'], CHAINS, (1, 0), (0, 0)),
+            'probit stencil': (lattice_2d[ProbitICARGibbs],
+                               LARGE_CHAINS['stencil'], (0, 0), (0, 0)),
+        })
 
-    t0 = phase('19 report')
+    t0 = phase('20 report')
     # no single PyTorch call computes either function (a fixed-round
     # rejection sampler; a fixed-iteration PCG), so library_ms is null
     common = {'route': 'cuda', 'library_ms': None}
@@ -1720,6 +1897,7 @@ def main():
         launches_logit_graph=large_launches['graph'],
         launches_parallel=par_pg, launches_2d=two_d_pg,
         launches_2d_graph=two_d_graph_pg, launches_2d_dense=dense_pg,
+        launches_2d_captured=nccl_pg,
         max_abs_err=pg_err, mismatch_share=mismatch,
         ms=pg_ms, plain_ms=pg_plain_ms, bound_ms=pg_bound,
         bound_by='operations' if pg_ops / PEAK_F32 > pg_bytes / PEAK_BYTES
@@ -1732,7 +1910,8 @@ def main():
         launches=cg_launches, replays=alt_runner.replays,
         launches_per_replay=alt_runner.per_replay[1],
         launches_parallel=par_cg,
-        launches_2d_dense=dense_cg, max_abs_err=cg_err,
+        launches_2d_dense=dense_cg, launches_2d_captured=nccl_cg,
+        max_abs_err=cg_err,
         ms=cg_ms,
         plain_ms=cg_plain_ms, bound_ms=cg_bound,
         bound_ms_is='3 TF32 operations per multiply-add at the tensor rate',

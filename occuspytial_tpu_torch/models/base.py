@@ -12,9 +12,12 @@ a CUDA card a chunk is the replays of one Gibbs step captured as a CUDA
 graph (:class:`_StepGraph`, cached on the instance: the counterpart of
 ``_get_runner``'s executable); the host loop that steps ``_step`` from
 Python (:meth:`GibbsBase._run_eager`) runs on the CPU and wherever
-:meth:`GibbsBase._runs_eagerly` says. Nothing inside a step reads a
-value back to the host; the solver's running residual maximum stays on
-the device and is read after the run.
+:meth:`GibbsBase._runs_eagerly` says. A band of a 2-D (chains x sites)
+run goes through the same loop, with the chunk length its parent
+resolved on the whole field; under NCCL its captured step holds the
+band's all-reduces. Nothing inside a step reads a value back to the
+host; the solver's running residual maximum stays on the device and is
+read after the run.
 
 Randomness: each chain has two key words (see :mod:`..rng`), a function of
 ``random_state`` and the chain index alone; every draw is a pure function
@@ -30,6 +33,7 @@ import typing
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import rng
 from .._device import resolve_device, resolve_dtype
@@ -136,9 +140,22 @@ class _StepGraph:
     counter as a tensor; TF32 stays off as on the host loop
     (:func:`.._device.resolve_device`); every library handle (cuBLAS,
     cuSOLVER), kernel library (``_build.load``) and K3's occupancy query
-    is made by one warm-up step on a side stream, run on clones of the
-    carry at the same step, so it consumes no draw. The step's
-    temporaries live in the graph's private memory pool.
+    is made by one warm-up step on the card's side stream (the stream of
+    the capture too), run on clones of the carry at the same step, so it
+    consumes no draw. The step's temporaries live in the graph's private
+    memory pool.
+
+    A band of a 2-D run under NCCL captures its step with the band's
+    all-reduces in it: NCCL enqueues each on its own stream, joined to
+    the capture by events, so a replay runs them as nodes of the graph.
+    The default capture mode (``'global'``) takes them, though
+    ProcessGroupNCCL's watchdog thread queries events while the stream
+    captures (checked with torch 2.11 and NCCL 2.28, an eager all-reduce
+    still pending at the capture). The warm-up step's all-reduces build
+    the communicator of the band's ``sites`` group (NCCL builds it at a
+    group's first collective; no other group is used by a step), and
+    every rank of the group warms up and captures the same step in the
+    same order.
 
     Kernel launch counts (:data:`KERNEL_COUNTERS`) are the kernels' own,
     on the card: the warm-up's launches count, the capture launches
@@ -165,7 +182,7 @@ class _StepGraph:
                            dtype=self.states[n].dtype, device=dev)
             for n in self.names
         }
-        side = torch.cuda.Stream(dev)
+        side = self._side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(sampler._graph_warmup_steps):
@@ -178,13 +195,27 @@ class _StepGraph:
         before = [c.recorded for c in KERNEL_COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, stream=side):
             self._store(sampler._step(self.keys, self.step, self.states,
                                       self.fixed))
         self.capture_seconds = time.perf_counter() - t0
         self.per_replay = [c.recorded - b
                            for c, b in zip(KERNEL_COUNTERS, before)]
         self.replays = 0
+
+    #: card index -> the stream every warm-up and capture runs on. cuBLAS
+    #: keeps a workspace (32 MiB on the H100) for each stream it has run
+    #: on, for the life of the process: a new stream for each capture
+    #: held 32 MiB more card memory for every sampler captured
+    _streams = {}
+
+    @classmethod
+    def _side_stream(cls, dev):
+        index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        if index not in cls._streams:
+            cls._streams[index] = torch.cuda.Stream(index)
+        return cls._streams[index]
 
     def _store(self, new):
         """The captured tail of a step: new state into the static
@@ -214,13 +245,15 @@ class _StepGraph:
         self.slot += 1
         self.step += 1
 
-    def run(self, carry, size):
+    def run(self, carry, size, clock=None):
         """``size`` replays from ``carry``: returns the next carry (clones
         of the static buffers, so a later run never overwrites it) and
         name -> (size, chains, ...) draws. The posterior entries are
         clones; the ``track`` entries are views of the graph's buffers,
         valid until its next replay: the caller moves them to the host
-        at once."""
+        at once. ``clock`` (a 2-D rank's step clock) is started before
+        the first replay, marked after each and stopped after the
+        last."""
         if size > self.length:
             raise ValueError(f'{size} steps exceed the graph\'s buffers '
                              f'({self.length})')
@@ -229,8 +262,14 @@ class _StepGraph:
             self.states[k].copy_(v)
         self.step.fill_(carry.step)
         self.slot.zero_()
+        if clock is not None:
+            clock.start()
         for _ in range(size):
             self.graph.replay()
+            if clock is not None:
+                clock.mark()
+        if clock is not None:
+            clock.stop()
         self.replays += size
         out = {n: self.out[n][:size] for n in self.names}
         for n in self.names:
@@ -600,11 +639,12 @@ class GibbsBase:
                 dtype=self.dtype, step=step,
             )
 
-    def _run_eager(self, carry, size, bars=()):
+    def _run_eager(self, carry, size, clock=None):
         """``size`` steps from ``carry`` in a host loop that calls
         ``_step`` once a step: returns the next carry and the recorded
-        draws, name -> (size, chains, ...) device tensor. Each bar ticks
-        once a step (a 2-D rank's step clock times each step so)."""
+        draws, name -> (size, chains, ...) device tensor. ``clock`` (a
+        2-D rank's step clock) is started before the first step, marked
+        after each and stopped after the last."""
         keys, states, step = carry
         names = tuple(self.posterior_names) + tuple(self.track)
         out = {
@@ -614,12 +654,16 @@ class GibbsBase:
             )
             for name in names
         }
+        if clock is not None:
+            clock.start()
         for t in range(size):
             states = self._step(keys, step + t, states, self.fixed)
             for name in names:
                 out[name][t].copy_(states[name])
-            for bar in bars:
-                bar.update(1)
+            if clock is not None:
+                clock.mark()
+        if clock is not None:
+            clock.stop()
         return Carry(keys, states, step + size), out
 
     def _runs_eagerly(self):
@@ -629,17 +673,29 @@ class GibbsBase:
 
         - off a CUDA card (the CPU has no graphs);
         - with ``pg_method='devroye'``: the plain rejection sampler reads
-          its active set back to the host every round.
+          its active set back to the host every round;
+        - in a band of a 2-D run (``parallel.sample_parallel_2d``) whose
+          ``sites`` group is not NCCL's: gloo stages a CUDA tensor's
+          all-reduce through the host, which a capture cannot take;
+        - in a timed band (``sample_parallel_2d(timed=True)``), which
+          synchronises the card around each all-reduce to time it;
+        - with :attr:`_force_eager` set.
 
-        A band of a 2-D run (``parallel.sample_parallel_2d``) never comes
-        here: its loop calls :meth:`_run_eager` itself (its sums over the
-        sites are gloo or NCCL all-reduces, which a capture does not
-        take, and its step clock times each step). Everywhere else on the
-        card the step is captured, and a capture that fails raises."""
+        Everywhere else on the card the step is captured, an NCCL band's
+        all-reduces included, and a capture that fails raises."""
+        sites = self._sites
         return (
             self.device.type != 'cuda'
             or getattr(self, 'pg_method', None) == 'devroye'
+            or self._force_eager
+            or (sites is not LOCAL and (
+                sites.timed or dist.get_backend(sites.group) != 'nccl'))
         )
+
+    #: True runs the host loop wherever the step could be captured: the
+    #: reference a captured run is held against, in one process or in
+    #: the ranks of a 2-D run
+    _force_eager = False
 
     #: eager steps run on clones before a capture (library handles,
     #: kernel builds, K3's occupancy query); their launches count
@@ -699,16 +755,19 @@ class GibbsBase:
     #: package's 256 MB); the posterior scalars are negligible
     _auto_chunk_output_budget = 256 << 20
 
-    def _resolve_chunk(self, size, with_bar, states):
+    def _resolve_chunk(self, size, with_bar, states, device=None):
         """Steps per chunk for this run (the JAX ``_resolve_chunk``, an
         accelerator being a CUDA device): an explicit ``scan_chunk``
         wins; on the CPU 64; on the card the whole run, or ``max(64,
         ceil(size / 16))`` to tick a progress bar, capped so that a
         chunk's ``track``-ed draws stay within
-        :attr:`_auto_chunk_output_budget`."""
+        :attr:`_auto_chunk_output_budget`. ``device``: where the run
+        goes, the sampler's device by default (a 2-D run passes its
+        ranks' device and the unsharded carry's ``states``)."""
         if self.scan_chunk is not None:
             return max(1, int(self.scan_chunk))
-        if self.device.type != 'cuda':
+        device = self.device if device is None else device
+        if device.type != 'cuda':
             return 64
         chunk = max(64, -(-size // 16)) if with_bar else size
         if self.track:
@@ -718,10 +777,11 @@ class GibbsBase:
             chunk = min(chunk, cap)
         return max(1, min(size, chunk))
 
-    def _run(self, carry, size, bars=()):
-        """``size`` steps from ``carry`` in chunks of
-        :meth:`_resolve_chunk` steps: returns the next carry and the
-        recorded draws, name -> (size, chains, ...) tensor.
+    def _run(self, carry, size, bars=(), chunk=None, clock=None):
+        """``size`` steps from ``carry`` in chunks of ``chunk`` steps
+        (default :meth:`_resolve_chunk`): returns the next carry and the
+        recorded draws, name -> (size, chains, ...) tensor. ``clock``
+        goes to the runner (a 2-D rank's step clock).
 
         Each chunk is the replays of the captured step on the card
         (:meth:`_graph_runner`), or the host loop where
@@ -734,7 +794,8 @@ class GibbsBase:
         chunk to bound a tunneled TPU runtime's queue; CUDA blocks the
         host when its launch queue is full, so nothing here needs it."""
         track = tuple(self.track)
-        chunk = self._resolve_chunk(size, bool(bars), carry.states)
+        if chunk is None:
+            chunk = self._resolve_chunk(size, bool(bars), carry.states)
         if self._runs_eagerly():
             run = self._run_eager
         else:
@@ -742,7 +803,7 @@ class GibbsBase:
         outs = []
         for start in range(0, size, chunk):
             ln = min(chunk, size - start)
-            carry, out = run(carry, ln)
+            carry, out = run(carry, ln, clock)
             outs.append(self._chunk_to_host(out, track))
             if bars:
                 if self.device.type == 'cuda':

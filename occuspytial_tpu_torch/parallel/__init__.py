@@ -137,14 +137,14 @@ def _sample_worker(conn, device, progress):
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    conn.send(('result', {
+    _spmd.send_result(conn, {
         'draws': {k: v.cpu().numpy() for k, v in out.items()},
         'keys': carry.keys.cpu().numpy(),
         'states': {k: v.cpu().numpy() for k, v in carry.states.items()},
         'step': carry.step,
         'launches': [c.launches for c in KERNEL_COUNTERS],
         'seconds': seconds,
-    }))
+    })
 
 
 def sample_parallel(
@@ -251,11 +251,45 @@ _SITE_STATE = ('z', 'k', 'eta', 'spatial', 'eps', 'omega_b')
 
 class Mesh2D:
     """A (chains x sites) grid of torch devices, one rank each, and the
-    backend of their process group (see :func:`mesh_2d`)."""
+    backend of their process group (see :func:`mesh_2d`).
+
+    Each :func:`sample_parallel_2d` call on the mesh starts its ranks (a
+    process each, ~10 s on the card machine) and stops them when it
+    returns. Inside ``with mesh:`` the ranks, their process group and
+    their communicators stay up from one call to the next, as a JAX mesh
+    keeps its devices, and stop when the block ends; a call that fails
+    stops them at once."""
 
     def __init__(self, devices, backend):
         self.devices = [list(row) for row in devices]
         self.backend = backend
+        self._world, self._held = None, False
+
+    def __enter__(self):
+        self._held = True
+        return self
+
+    def __exit__(self, *exc):
+        self._held = False
+        self._stop()
+
+    def _ranks(self):
+        """The mesh's ranks in one :class:`._spmd.World`, with a ``sites``
+        subgroup per chain row: the running ones, or new ones."""
+        if self._world is None:
+            n_sites = self.shape['sites']
+            devices = [d for row in self.devices for d in row]
+            self._world = World(
+                len(devices), devices, self.backend,
+                subgroups=[range(c * n_sites, (c + 1) * n_sites)
+                           for c in range(self.shape['chains'])],
+            )
+        return self._world
+
+    def _stop(self):
+        world, self._world = self._world, None
+        if world is not None:
+            world.close()
 
     @property
     def shape(self):
@@ -276,7 +310,9 @@ def mesh_2d(chains=1, sites=None, devices=None, backend=None):
     visible CUDA card, one rank each (raises without CUDA), ``sites``
     defaulting to the cards over ``chains``. ``backend``: ``'nccl'`` when
     every rank has a card of its own, else ``'gloo'`` (NCCL refuses two
-    ranks on one card; gloo takes CUDA tensors in ``all_reduce``).
+    ranks on one card; gloo takes CUDA tensors in ``all_reduce``). Used
+    as ``with mesh:``, the mesh keeps its ranks up between runs
+    (:class:`Mesh2D`).
     """
     if devices is None:
         devices = chain_mesh()
@@ -485,34 +521,70 @@ _WARM_STEPS = 2
 
 
 class _StepClock:
-    """A progress bar that times a rank's steps: it synchronises the card
-    after each step and keeps the host clock, and after
-    :data:`_WARM_STEPS` steps restarts the collectives' timers."""
+    """Each step's seconds in a rank of a 2-D run (``seconds``), marked by
+    the runner (:meth:`..models.base.GibbsBase._run`): ``start`` before a
+    chunk's first step, ``mark`` after each step, ``stop`` after its
+    last.
 
-    def __init__(self, device, sites):
-        self.device, self.sites = device, sites
-        self.times = [self._now()]
+    In the host loop (``events=False``) each mark synchronises the card
+    and reads the host clock, and after :data:`_WARM_STEPS` steps the
+    collectives' timers restart. Replaying a captured step
+    (``events=True``) each mark records a CUDA event, with no host sync,
+    and the chunk's events are read when it stops: a step's seconds are
+    the card's, from the end of one replay to the end of the next."""
+
+    def __init__(self, device, sites, events):
+        self.device, self.sites, self.events = device, sites, events
+        self.seconds = []
+        self._marks, self._last = [], None
 
     def _now(self):
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def update(self, k):
-        self.times.append(self._now())
-        if len(self.times) == _WARM_STEPS + 1:
+    def start(self):
+        if self.events:
+            self._marks = [self._event()]
+        else:
+            self._last = self._now()
+
+    def mark(self):
+        if self.events:
+            self._marks.append(self._event())
+            return
+        now = self._now()
+        self.seconds.append(now - self._last)
+        self._last = now
+        if len(self.seconds) == _WARM_STEPS:
             self.sites.seconds.clear()
             self.sites.calls.clear()
 
+    def stop(self):
+        if self.events:
+            self._marks[-1].synchronize()
+            self.seconds += [a.elapsed_time(b) / 1e3 for a, b in
+                             zip(self._marks, self._marks[1:])]
+            self._marks = []
 
-def _sample_band(sampler, carry, size, progress, timed):
+    @staticmethod
+    def _event():
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+
+def _sample_band(sampler, carry, size, chunk, progress, timed):
     """Rank body of :func:`sample_parallel_2d`: attach the band's
     operators (a lattice or a graph) and its site hook (its chain row's
-    group) to the band sampler, run ``size`` steps from its carry part,
-    and return the draws, the final carry, the kernel launches, each
-    step's seconds and (timed) the collectives' seconds after the warm
-    steps, as numpy."""
+    group) to the band sampler, run ``size`` steps from its carry part
+    through the sampler's runner in chunks of ``chunk`` steps, and return
+    the draws, the final carry, the kernel launches, each step's
+    seconds, the runner's record and (timed) the collectives' seconds
+    after the warm steps, as numpy."""
     device = _spmd.rank_device()
+    if device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(device)
     sampler = sampler._moved(device)
     band, group = sampler._band, _spmd.subgroup()
     if isinstance(band, SiteBand):
@@ -527,13 +599,19 @@ def _sample_band(sampler, carry, size, progress, timed):
     sampler._sites = sites
     keys, states, step = carry
     carry = _carry_to(Carry(keys, states, step), device)
+    captured = not sampler._runs_eagerly()
     before = [c.launches for c in KERNEL_COUNTERS]
-    clock = _StepClock(device, sites)
-    bars = [clock] + ([_Progress(_spmd.rank_conn())] if progress else [])
-    # the host loop, always (the one place a band's runner is chosen): a
-    # capture takes no all-reduce, and the clock times each step
-    carry, out = sampler._run_eager(carry, size, bars)
-    step_seconds = np.diff(clock.times)
+    clock = _StepClock(device, sites, events=captured)
+    bars = [_Progress(_spmd.rank_conn())] if progress else []
+    carry, out = sampler._run(carry, size, bars, chunk, clock)
+    run = {'captured': captured, 'peak_bytes': None}
+    if captured:
+        graph = sampler._graph_runners[(carry.keys.shape[0],
+                                        tuple(sampler.track))]
+        run.update(capture_seconds=graph.capture_seconds,
+                   per_replay=list(graph.per_replay), replays=graph.replays)
+    if device.type == 'cuda':
+        run['peak_bytes'] = torch.cuda.max_memory_allocated(device)
     return {
         'draws': {k: v.cpu().numpy() for k, v in out.items()},
         'keys': carry.keys.cpu().numpy(),
@@ -541,7 +619,8 @@ def _sample_band(sampler, carry, size, progress, timed):
         'step': carry.step,
         'launches': [c.launches - b
                      for c, b in zip(KERNEL_COUNTERS, before)],
-        'step_seconds': step_seconds,
+        'step_seconds': np.asarray(clock.seconds),
+        'run': run,
         'collective_seconds': dict(sites.seconds),
         'collective_calls': dict(sites.calls),
     }
@@ -591,16 +670,39 @@ def sample_parallel_2d(
     cold-start solver check are made once, here, by
     ``sampler.init_carry``.
 
+    Each rank runs its band as :meth:`~..models.base.GibbsBase.sample`
+    runs one process (:meth:`~..models.base.GibbsBase._run`), in chunks
+    of one length for every rank, resolved here by the JAX
+    ``_resolve_chunk`` rule on the unsharded carry (an explicit
+    ``sampler.scan_chunk`` wins; on the CPU 64; on the card the whole
+    run, or about 16 chunks with a progress bar, capped so that one
+    chunk's ``track``-ed draws over the whole mesh stay within the 256 MB
+    budget), and moves each chunk's ``track``-ed draws to its host as the
+    chunk ends. The progress bar ticks once a chunk. On the card a rank
+    whose ``sites`` group is NCCL's replays its band step captured as one
+    CUDA graph, the all-reduces inside it; a gloo rank, a timed rank and
+    a CPU rank run the host loop (:meth:`~..models.base.GibbsBase.
+    _runs_eagerly`). The draws are the same bits either way. The ranks
+    start for the call and stop when it returns, or stay up between the
+    calls made inside ``with mesh:`` (:class:`Mesh2D`).
+
     Returns a :class:`~..posterior.PosteriorParameter` in the chain order
     of one process; alpha, beta and tau (and an RSR sampler's eta) come
     from site rank 0 of each chain row, which must hold the same bits as
     its other site ranks; site-sized ``track`` entries are joined over
     the bands. Sets
     ``sampler.final_carry`` (gathered on the sampler's device; a tripped
-    solver guardrail raises after it is set) and
-    ``sampler.rank_step_seconds`` (per rank, each step's seconds, the card
-    synchronised after every step), and adds the ranks' kernel launches
-    to the wrappers' counts. ``timed=True`` also synchronises the card
+    solver guardrail raises after it is set),
+    ``sampler.rank_step_seconds`` (per rank, each step's seconds: in the
+    host loop the host clock with the card synchronised after every step;
+    replaying the captured step CUDA events recorded after each replay
+    and read when the chunk ends, with no host sync between replays) and
+    ``sampler.rank_runs`` (per rank, ``captured``: whether it replayed
+    the captured step, then ``capture_seconds``, ``per_replay`` (each
+    kernel's launches recorded in the graph) and ``replays``; and
+    ``peak_bytes``, its card's peak allocated memory, None off the card),
+    and adds the ranks' kernel launches to the wrappers' counts.
+    ``timed=True`` also synchronises the card
     around every all-reduce of the ranks and sets
     ``sampler.rank_collectives``: per rank, label -> (seconds, calls)
     over the steps after the first two: ``'dct'`` for the lattice
@@ -623,27 +725,30 @@ def sample_parallel_2d(
     if any(d.type == 'cuda' for d in devices):
         _build.build()
     bars = sampler._progress_bars(bool(progressbar), size, 1)
+    # one chunk length for every rank, from the global shapes: the mesh
+    # holds at most one budget of track-ed draws, as the JAX package does
+    chunk = sampler._resolve_chunk(size, bool(bars), carry.states,
+                                   devices[0])
 
     def on_progress(r, k):
         for bar in bars:
             bar.update(k)
 
-    world = World(
-        len(devices), devices, mesh.backend,
-        subgroups=[range(c * n_sites, (c + 1) * n_sites)
-                   for c in range(n_rows)],
-    )
     try:
-        results = world.run_each(
+        results = mesh._ranks().run_each(
             _sample_band,
-            [(view, part, size, bool(bars) and r == 0, timed)
+            [(view, part, size, chunk, bool(bars) and r == 0, timed)
              for r, (view, part) in enumerate(parts)],
             on_progress,
         )
+    except BaseException:
+        mesh._stop()
+        raise
     finally:
-        world.close()
         for bar in bars:
             bar.close()
+    if not mesh._held:
+        mesh._stop()
 
     cut = _site_states(sampler)
     rows = [results[c * n_sites:(c + 1) * n_sites] for c in range(n_rows)]
@@ -664,6 +769,7 @@ def sample_parallel_2d(
         results[0]['step'],
     )
     sampler.rank_step_seconds = [r['step_seconds'] for r in results]
+    sampler.rank_runs = [r['run'] for r in results]
     if timed:
         sampler.rank_collectives = [
             {k: (r['collective_seconds'][k], r['collective_calls'][k])

@@ -10,6 +10,7 @@ run in a forked child), with a pipe to the parent:
   with code 1; a worker that dies closes its pipe. Either way the parent
   stops every worker and raises with the worker's message and exit code:
   it never waits on a dead worker and never returns part of the answers.
+  An answer's large arrays follow it in pieces (:func:`send_result`).
 - :class:`World` keeps ``world`` ranks joined in one
   ``torch.distributed`` process group and runs per-rank functions on
   them, each rank given its contiguous slices of the global arrays on its
@@ -69,8 +70,9 @@ class Workers:
     """One spawned process per entry of ``args_list``, each running
     ``target(conn, *args)`` with a duplex pipe ``conn`` to the parent.
 
-    ``target`` answers with ``conn.send(('result', value))`` and may send
-    ``('progress', k)`` before it. ``labels`` name the workers in errors.
+    ``target`` answers with :func:`send_result` and may send
+    ``conn.send(('progress', k))`` before it. ``labels`` name the workers
+    in errors.
     """
 
     def __init__(self, target, args_list, labels):
@@ -110,6 +112,8 @@ class Workers:
                 i = self.conns.index(conn)
                 try:
                     kind, value = conn.recv()
+                    if kind == 'result':
+                        value = _fill(conn, value)
                 except EOFError:
                     self._fail(i, 'died before it answered')
                 if kind == 'progress':
@@ -144,6 +148,66 @@ class Workers:
         for conn in self.conns:
             conn.close()
         self.procs, self.conns = [], []
+
+
+#: bytes of one message on a worker's pipe: a larger array of an answer
+#: follows it in pieces of this size. Each read of a message asks for
+#: all of its rest; sent whole on an H100 host (Python 3.12), 268 MB took
+#: 24-31 s to arrive and 1.3 GB more than 150 s, in pieces 0.3-0.9 s and
+#: 1.6-4.4 s
+_PIECE = 1 << 20
+
+
+class _Bulk:
+    """Stands in an answer for an array sent after it in pieces."""
+
+    def __init__(self, arr):
+        self.shape, self.dtype = arr.shape, arr.dtype
+
+
+def _walk(tree, leaf):
+    """``tree`` with ``leaf`` applied to each value in its dicts, lists
+    and tuples (named tuples are leaves), in a fixed order."""
+    if isinstance(tree, dict):
+        return {k: _walk(v, leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, '_fields'):
+        return type(tree)(_walk(v, leaf) for v in tree)
+    return leaf(tree)
+
+
+def send_result(conn, value):
+    """Answer ``('result', value)`` on ``conn``: the value with each
+    numeric array over :data:`_PIECE` bytes replaced by a :class:`_Bulk`,
+    then those arrays' bytes in pieces of :data:`_PIECE` bytes, in the
+    order :func:`_walk` meets them."""
+    bulk = []
+
+    def strip(v):
+        if (isinstance(v, np.ndarray) and v.dtype != object
+                and v.nbytes > _PIECE):
+            bulk.append(np.ascontiguousarray(v))
+            return _Bulk(v)
+        return v
+
+    conn.send(('result', _walk(value, strip)))
+    for arr in bulk:
+        view = memoryview(arr.reshape(-1)).cast('B')
+        for at in range(0, len(view), _PIECE):
+            conn.send_bytes(view[at:at + _PIECE])
+
+
+def _fill(conn, value):
+    """The value :func:`send_result` sent, its arrays read from ``conn``."""
+    def fill(v):
+        if not isinstance(v, _Bulk):
+            return v
+        arr = np.empty(v.shape, v.dtype)
+        view = memoryview(arr.reshape(-1)).cast('B')
+        for at in range(0, len(view), _PIECE):
+            conn.recv_bytes_into(view, at)
+        return arr
+
+    return _walk(value, fill)
 
 
 def _to_torch(tree, device):
@@ -203,7 +267,7 @@ def _rank_main(conn, rank, world, device, backend, init_method,
         group = dist.new_group(list(ranks))
         if rank in ranks:
             _RANK['subgroup'] = group
-    conn.send(('result', 'ready'))
+    send_result(conn, 'ready')
     while True:
         task = conn.recv()
         if task is None:
@@ -212,7 +276,7 @@ def _rank_main(conn, rank, world, device, backend, init_method,
         out = fn(*_to_torch(args, device))
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
-        conn.send(('result', _to_numpy(out)))
+        send_result(conn, _to_numpy(out))
     dist.destroy_process_group()
 
 

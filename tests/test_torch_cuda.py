@@ -892,3 +892,74 @@ def test_a_step_that_reads_back_makes_the_run_raise(dev, monkeypatch):
     assert not eager and not s._graph_runners
     assert not hasattr(s, 'final_carry')
     torch.cuda.synchronize()
+
+
+# ------------- the captured band step of a 2-D run under NCCL ----------- #
+
+@pytest.mark.parametrize('regime', ['stencil', 'cg-pallas'])
+def test_2d_nccl_band_step_is_captured_and_matches_the_host_loop(dev,
+                                                                 regime):
+    """On a 1 x 1 NCCL mesh the rank replays its band step captured as
+    one CUDA graph with its all-reduces inside (in the dense ``'cg'``
+    regime with ``cg_impl='pallas'`` K3 runs in that graph too): the
+    draws and the final carry are the host loop's (``_force_eager``), bit
+    for bit, and K1/K3 count the warm-up step and ``per_replay`` x
+    ``replays``, plus the parent's cold-start check."""
+    from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
+
+    Q, W, X, y, *_ = make_lattice_dataset(20, 30, ns=300, seed=5)
+    if regime == 'stencil':
+        kw, per_step, cold = dict(lattice=(20, 30, 8)), [1, 0], [1, 0]
+    else:
+        kw = dict(solver='cg', cg_iters=15, cg_impl='pallas')
+        per_step, cold = [1, 3], [1, 1]
+    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter)
+    size, runs = 8, {}
+    for eager in (False, True):
+        s = LogitICARGibbs(Q, W, X, y, random_state=4, **kw)
+        s._force_eager = eager
+        before = [c.launches for c in counters]
+        post = sample_parallel_2d(s, size, mesh_2d(1, 1, ['cuda:0']),
+                                  chains=4)
+        runs[eager] = (s, post, [c.launches - b
+                                 for c, b in zip(counters, before)])
+    (s_g, post_g, got_g), (s_e, post_e, got_e) = runs[False], runs[True]
+    assert [r['captured'] for r in s_g.rank_runs] == [True]
+    assert [r['captured'] for r in s_e.rank_runs] == [False]
+    run = s_g.rank_runs[0]
+    assert run['per_replay'] == per_step and run['replays'] == size
+    assert got_g == [k * (size + WARM) + c for k, c in zip(per_step, cold)]
+    assert got_e == [k * size + c for k, c in zip(per_step, cold)]
+    for name in ('alpha', 'beta', 'tau'):
+        np.testing.assert_array_equal(post_g[name], post_e[name])
+    assert torch.equal(s_g.final_carry.keys, s_e.final_carry.keys)
+    for name, val in s_e.final_carry.states.items():
+        assert torch.equal(s_g.final_carry.states[name], val), name
+    assert [len(t) for t in s_g.rank_step_seconds] == [size]
+
+
+def test_2d_tracked_nccl_run_holds_one_chunk_on_the_card(dev):
+    """The 2-D counterpart of
+    :func:`test_tracked_run_holds_one_chunk_on_the_card`: a 1 x 1 NCCL
+    run of config 5 (10,000 sites, 32 chains, 1024 draws: 1.31 GB of
+    eta) with ``track=('eta',)`` keeps at most one 256 MB chunk of it on
+    its rank's card: the rank's peak stays within the untracked run's
+    plus the budget."""
+    from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
+
+    Q, W, X, y, *_ = make_lattice_dataset(100, 100, ns=5000, seed=11,
+                                          min_v=2, max_v=5)
+    peaks, budget = {}, GibbsBase._auto_chunk_output_budget
+    for track in ((), ('eta',)):
+        s = LogitICARGibbs(Q, W, X, y, random_state=11,
+                           lattice=(100, 100, 8))
+        s.track = track
+        post = sample_parallel_2d(s, 1024, mesh_2d(1, 1, ['cuda:0']),
+                                  chains=32)
+        [run] = s.rank_runs
+        assert run['captured'] and run['replays'] == 1024
+        peaks[track] = run['peak_bytes']
+        if track:
+            assert post['eta'].shape == (32, 1024, 10000)
+            assert np.isfinite(post['eta'][:, -1]).all()
+    assert peaks[('eta',)] <= peaks[()] + budget, peaks
