@@ -45,6 +45,8 @@ CHAINS = 64
 # phase 5 runs the bench's depth (bench.py:390-401)
 MAIN_SIZE, MAIN_BURNIN = 3008, 512
 CG_SIZE, CG_BURNIN = 512, 128
+# phase 6 (cg_impl='pallas') at the bench's depth, as phase 5
+ALT_SIZE, ALT_BURNIN = MAIN_SIZE, MAIN_BURNIN
 # bench.py configs 3, 2 and 2b at their widths, depth cut from 3008 / 512
 # and 2048 / 512 draws
 RSR_Q = 100
@@ -162,6 +164,30 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls=10, reps=5):
+    """Mean milliseconds of ``fn()`` replayed from a CUDA graph that
+    captured ``calls`` calls (no host work between them), by CUDA events
+    over ``reps`` replays after one warm-up call and one warm-up replay."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def min_pooled_ess(post):
@@ -367,7 +393,7 @@ def parallel_phase(dev, kind, card, counters, data, post_6, sec_6):
           f'{CG_SIZE / busy:.2f} it/s over the workers\' sampling '
           f'({", ".join(f"{x:.2f}" for x in s.worker_seconds)} s), min '
           f'pooled bulk-ESS {ess:.1f}, ESS/s {ess / wall:.2f}')
-    print(f'    phase 6 in one process ({card}): {CG_SIZE / sec_6:.2f} it/s')
+    print(f'    phase 6 in one process ({card}): {ALT_SIZE / sec_6:.2f} it/s')
     done(t0)
     return pg_n, cg_n
 
@@ -1414,7 +1440,10 @@ def main():
     )
     from occuspytial_tpu_torch.ops import polyagamma as pgm
     from occuspytial_tpu_torch.ops.cg import icar_cg_solve_spectral
-    from occuspytial_tpu_torch.ops.cuda_cg import icar_cg_solve_cuda
+    from occuspytial_tpu_torch.ops.cuda_cg import (
+        icar_cg_solve_cuda,
+        k3_operands,
+    )
     from occuspytial_tpu_torch.ops.cuda_pg import pg_devroye_cuda
     from occuspytial_tpu_torch.utils import make_data
 
@@ -1556,7 +1585,8 @@ def main():
         check(e_rel <= 1e-3, f'starved CG residual differs tau={tau_v} '
                              f'iters={iters}')
     # shapes off the tile grid: chain and row counts, n not a multiple of
-    # 64 (500) or of 4 (333, staged by 4-byte copies), any orthogonal U;
+    # 48 (500) or of 4 (333, through operands and vectors padded to a row
+    # stride of 336), any orthogonal U;
     # each converged (8 iterations, warm) and cut short from a zero start
     # (1 and 2 iterations), where the residual is far from rounding (above
     # 1e-4; a converged one reads 1e-7) and is held to 1e-3 of itself with
@@ -1641,13 +1671,48 @@ def main():
           'a chain depends on the other chains')
     check(not torch.equal(full[0][:5], mixed[0][:5]),
           'the other chains did not change')
+    # the operands prepared once, as a 'pallas' sampler keeps them, give
+    # the bits of the call that prepares its own
+    ops = k3_operands(u_eig)
+    given = icar_cg_solve_cuda(rhs, warm, omega_b, tau, u_eig, s_eig, 8,
+                               return_resid=True, operands=ops)
+    check(all(torch.equal(a, b) for a, b in zip(full, given)),
+          'prepared operands change the CG bits')
     print('    two launches bit-identical; chains 5-7 bit-identical alone '
-          '(3 chains) and among 61 other chains')
+          '(3 chains) and among 61 other chains; prepared operands give '
+          'the same bits')
     tau = torch.full((CHAINS,), 1.0, device=dev)
-    cg_ms = time_ms(lambda: icar_cg_solve_cuda(
-        rhs, warm, omega_b, tau, u_eig, s_eig, 8, return_resid=True), 20)
+
+    def k3(iters, *a):
+        a = a or (rhs, warm, omega_b, tau, u_eig, s_eig)
+        o = ops if a[4] is u_eig else k3_operands(a[4])
+        return lambda: icar_cg_solve_cuda(*a, iters, return_resid=True,
+                                          operands=o)
+
+    # the sampler's call (operands prepared once), timed from the host as
+    # the kernel table's earlier times were, and replayed from a captured
+    # graph as the captured step runs it, with no iteration and with 8:
+    # their difference is 8 iterations of 2 products each (an iters=0
+    # call costs the host about as long as the card, so only the graph
+    # times it)
+    cg_ms = time_ms(k3(8), 20)
+    cg_graph_ms = graph_ms(k3(8))
+    cg_ms0 = graph_ms(k3(0))
     cg_plain_ms = time_ms(lambda: icar_cg_solve_spectral(
         rhs, warm, omega_b, tau, u_eig, s_eig, 8, return_resid=True), 20)
+    iter_ms = (cg_graph_ms - cg_ms0) / 8
+    product_ms = iter_ms / 2
+    # yardstick, never called by the port: one float32 torch.matmul of the
+    # same (384, 1000) x (1000, 1000) product, TF32 off as resolve_device
+    # sets it (cuBLAS SGEMM)
+    check(not torch.backends.cuda.matmul.allow_tf32, 'TF32 matmul is on')
+    batch = rhs.reshape(-1, s.n)
+    matmul_ms = time_ms(lambda: torch.matmul(batch, u_eig), 50)
+    print(f'    iters=8 {cg_ms:.4f} ms from the host, {cg_graph_ms:.4f} ms '
+          f'captured; iters=0 {cg_ms0:.4f} ms captured: {iter_ms:.5f} ms '
+          f'an iteration, {product_ms:.5f} ms a product phase; float32 '
+          f'torch.matmul (384, 1000) x (1000, 1000) {matmul_ms:.5f} ms '
+          f'(yardstick, TF32 off)')
     n = s.n
     products = 2 * (8 + 1) + 2  # operator per iteration + start, rhs, out
     cg_ops = products * CHAINS * rows * n * n * 2
@@ -1720,7 +1785,7 @@ def main():
     icar_cg_solve_cuda.counter.launches = 0
     torch.cuda.synchronize()
     ts = time.perf_counter()
-    post_alt = alt.sample(CG_SIZE, burnin=CG_BURNIN, chains=CHAINS,
+    post_alt = alt.sample(ALT_SIZE, burnin=ALT_BURNIN, chains=CHAINS,
                           progressbar=False)
     torch.cuda.synchronize()
     alt_sec = time.perf_counter() - ts
@@ -1728,14 +1793,14 @@ def main():
     pg_launches_alt = pg_devroye_cuda.counter.launches
     alt_runner = alt._graph_runners[(CHAINS, ())]
     check(alt_runner.per_replay == [1, 3]
-          and alt_runner.replays == CG_SIZE,
+          and alt_runner.replays == ALT_SIZE,
           f'cg_impl=pallas graph: {alt_runner.per_replay} recorded, '
           f'{alt_runner.replays} replays')
     # three a step (one a sweep) in the warm-up and in every replay, and
     # the cold-start check's
-    want = 3 * (CG_SIZE + warm) + 1
+    want = 3 * (ALT_SIZE + warm) + 1
     check(cg_launches == want, f'CG launches {cg_launches} != {want}')
-    check(pg_launches_alt == CG_SIZE + warm + 1, 'PG launches in phase 6')
+    check(pg_launches_alt == ALT_SIZE + warm + 1, 'PG launches in phase 6')
     for name in ('alpha', 'beta', 'tau'):
         check(np.isfinite(np.asarray(post_alt[name])).all(),
               f'non-finite {name} draws (pallas CG)')
@@ -1743,7 +1808,7 @@ def main():
           f'solver residual {alt.last_solver_resid}')
     worst = mean_parity(post, post_alt)
     ess_alt = min_pooled_ess(post_alt)
-    print(f'    {CG_SIZE / alt_sec:.2f} it/s, min pooled bulk-ESS '
+    print(f'    {ALT_SIZE / alt_sec:.2f} it/s, min pooled bulk-ESS '
           f'{ess_alt:.1f}, ESS/s {ess_alt / alt_sec:.2f}, '
           f'last_solver_resid {alt.last_solver_resid:.3e}, worst mean '
           f'z-ratio vs phase 5 {worst:.3f}; K3 {cg_launches} launches by '
@@ -1912,7 +1977,9 @@ def main():
         launches_parallel=par_cg,
         launches_2d_dense=dense_cg, launches_2d_captured=nccl_cg,
         max_abs_err=cg_err,
-        ms=cg_ms,
+        ms=cg_ms, ms_captured=cg_graph_ms, ms_iters0_captured=cg_ms0,
+        iteration_ms=iter_ms,
+        product_ms=product_ms, matmul_f32_product_ms=matmul_ms,
         plain_ms=cg_plain_ms, bound_ms=cg_bound,
         bound_ms_is='3 TF32 operations per multiply-add at the tensor rate',
         bound_float32_ms=cg_bound_f32,

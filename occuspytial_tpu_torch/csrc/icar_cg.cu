@@ -14,102 +14,132 @@
 // exact elementwise term and every sum accumulates in float32, so a stiff
 // tau (1e4) stays stable.
 //
+// What bounds it on the card. Its bound is operations: a solve makes
+// 2 (iters + 1) + 2 products of the (chains * rows, n) row batch with U or
+// U' (n^2 multiply-adds a row each, three tensor-core operations for each
+// of them, below) against ~10 MB of compulsory traffic. What binds it is
+// the L2 cache and fixed costs: every 64-row tile reads both halves of its
+// eigenbasis' column tile again, so a product at 64 chains x 6 rows x n =
+// 1000 reads ~80 MB from L2 (20 KB a k-slice and block), and each phase
+// pays its pipeline fill, its epilogue and a grid-wide barrier
+// (scripts/torch_k3_anatomy.py takes a solve apart on the card).
+//
 // Design. Like the TPU kernel, the solve is one (chains * rows, n) row batch
-// against one U: every matrix product of the iteration is a tiled float32
-// product of that batch with U or U', and the whole solve is ONE cooperative
-// launch whose phases are separated by grid-wide barriers:
+// against one U, and the whole solve is ONE cooperative launch whose phases
+// are separated by grid-wide barriers:
 //   start   b = rhs U (and ||b||^2), w = omega o (x0 U'), mean(omega)
 //           r = b - (tau*S*x0 + w U), p = M^-1 r, r.z
 //   each iteration
 //     S1    w  = omega o (p U')                        [tiles]
 //     S2    Ap = tau*S*p + w U, and p.Ap               [tiles]
-//     S3    alpha, x, r, r.z, beta, p                  [one warp per row]
+//     S3    alpha, x, r, r.z, beta, p                  [two warps a row]
 //   end     x_site = x U', per-chain residual
-// A tile is 48 rows x 64 columns of the output; the grid is persistent and
-// walks the tiles (128 of them at 64 chains x 6 rows x n = 1000, one per SM).
-// Each k-slice of 32 is staged in shared memory by cp.async through a
-// 4-stage ring, so one staged tile of U feeds 48 rows, which belong to
-// several chains. The vectors r, p, Ap, w and x live in global memory, where
-// they stay in the L2 cache.
+// A tile is 64 rows (one wgmma) x 48 columns of a product's output; the
+// grid is persistent and walks the tiles (126 of them at 64 chains x 6 rows
+// x n = 1000, one wave on 132 SMs).
 //
-// The products run on the tensor cores at float32 accuracy ("3xTF32"): each
-// operand is split into a TF32 head and a TF32 remainder, a = hi + lo, and
-// lo*hi + hi*lo + hi*hi is accumulated in float32 by mma.sync m16n8k8, small
-// terms first; what is dropped is ~2^-21 of a product, the size of float32
-// rounding. The 8 warps of a block form 4 k-groups (each takes 8 of
-// a slice's 32 k) of 2 warps (each takes all 48 rows and 32 of the 64
-// columns: 3 x 4 mma tiles, 48 accumulators a thread). Fragments are read
-// from shared memory by conflict-free 4-byte loads in which every lane gets
-// its own element. The four groups' sums are added in a fixed order through
-// shared memory, from which all 256 threads run the epilogue on 4
-// consecutive columns each.
+// Every product runs on wgmma.mma_async with TF32 operands, fed by TMA.
+// wgmma takes TF32 only K-major, so both products read an eigenbasis stored
+// with k contiguous: A U reads U' row-major, A U' reads U. The wrapper
+// prepares them once (ops/cuda_cg.py:k3_operands): one (4, n, ld) tensor
+// holding the TF32 head and remainder of U and of U', rows padded to ld =
+// n rounded up to 4 floats (TMA's 16-byte row stride). Every other array
+// the kernel reads or writes (rhs, x0, omega, S, the outputs and the
+// scratch r, p, Ap, w, x) takes the same stride. Block roles: one producer
+// warp whose lane 0 keeps k-slices of 32 floats (128 bytes, the 128-byte
+// swizzle) of both operands in flight through an 8-stage ring of shared
+// memory, each stage guarded by a full and an empty mbarrier; the A slice
+// (64 x 32 of the vector batch) and the head and remainder of the B slice
+// (2 x 48 x 32, one after the other) arrive by two cp.async.bulk.tensor
+// copies, and the tensor maps' bounds are (n, rows) and (n, n), so the
+// ragged edge is zero-filled by the copy and the row padding is never read.
+// Two consumer warpgroups take alternate k-slices (warpgroup c the slices
+// kt % 2 == c): each reads its slice of A from shared memory into
+// registers (conflict-free 4-byte loads on the swizzled layout) and splits
+// it into head and remainder there. Per 8 k it issues two wgmma with A in
+// registers and B from shared memory: m64n48k8 for the A remainder times
+// the B head, and m64n96k8 for the A head times the B head and remainder
+// at once. The three sums meet at the end, small terms first: (lo*hi +
+// hi*lo) + hi*hi ("3xTF32", float32 accuracy: what is dropped is ~2^-21 of
+// a product). The two warpgroups' sums meet in shared memory, even slices
+// + odd slices, and 256 consumer threads run the phase's epilogue, 4
+// threads a row of the tile.
 //
 // Order of sums. Every output element is summed over k in one fixed order
-// that depends on n alone. Row dot products are reduced per (row, column
+// that depends on n alone: the k-slices, their split between the two
+// warpgroups and the order of the products are the same for every row, and
+// a wgmma's arithmetic for an output element does not depend on the row's
+// place in the 64-row tile. Row dot products are reduced per (row, column
 // tile) in a fixed order inside the tile's epilogue, written to global
-// memory and summed in tile order after the barrier; the row pass uses one
-// warp per row. There are no floating-point atomics. A row's results
-// therefore depend on that row's chain alone: they are bit-identical from
-// launch to launch, whatever the other chains hold and whatever the chain
-// count (and so the tiling of rows, and the grid) is.
+// memory and summed in a fixed order after the barrier; the row pass sums a
+// row over a fixed pair of warps. There are no floating-point atomics. A
+// row's results therefore depend on that row's chain alone: they are
+// bit-identical from launch to launch, whatever the other chains hold and
+// whatever the chain count (and so the tiling of rows, and the grid) is.
 //
-// What bounds it on the card: operations (2 n^2 multiply-adds per row and
-// product, 2 (iters + 1) + 2 products per solve; three tensor-core
-// operations for each) against ~10 MB of compulsory traffic. Shapes off the
-// tile grid are zero-filled in shared memory (cp.async with a short source),
-// never read past a row. When n is not a multiple of 4, or a tensor is not
-// 16-byte aligned, the tiles are staged by 4-byte copies instead of 16-byte
-// ones.
+// Writes made by ordinary stores that a later phase reads through TMA (w,
+// p, x) are ordered by a proxy fence on both sides of the grid barrier. A
+// wait on the ring that lasts 20 s traps instead of holding the card.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums only; no driver library link
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBM = 48;       // output rows per tile
-constexpr int kBN = 64;       // output columns per tile
-constexpr int kBK = 32;       // k-slice per pipeline stage
-constexpr int kStages = 4;    // depth of the cp.async ring
-constexpr int kThreads = 256;
+constexpr int kBM = 64;        // output rows per tile: one wgmma
+constexpr int kBN = 48;        // output columns per tile: the wgmma's N
+constexpr int kBK = 32;        // k per stage: 128 bytes of float
+constexpr int kStages = 8;     // depth of the TMA ring
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kWarps = kThreads / 32;
-constexpr int kGroups = 4;    // k-groups a block's warps form
-constexpr int kLd = kBK + 4;   // row stride of k-contiguous shared tiles
-constexpr int kLdB = kBN + 8;  // row stride of the n-contiguous U tile
-constexpr int kLdC = kBN + 8;  // row stride of the staged partial sums
-constexpr int kAFloats = kBM * kLd;
-constexpr int kBFloats = kBN * kLd;
-constexpr int kStageFloats = kAFloats + kBFloats;
-constexpr int kSmemBytes = kStages * kStageFloats * (int)sizeof(float);
+constexpr int kABytes = kBM * kBK * 4;
+constexpr int kBHalfBytes = kBN * kBK * 4;
+constexpr int kStageBytes = kABytes + 2 * kBHalfBytes;
+constexpr int kEpilogueThreads = 4 * kBM;  // 4 a row of the tile
+constexpr int kLdC = kBN + 4;  // row stride of the staged sums
+constexpr int kCFloats = kBM * kLdC;
+constexpr int kSmemBytes = 1024 /* alignment slack */ + kStages * kStageBytes
+                           + kConsumers * kCFloats * 4 + 2 * kStages * 8;
 constexpr int kBlocksPerSM = 1;
 constexpr float kTiny = 1e-30f;
 
-static_assert(kBK * kLdB <= kBFloats, "the n-contiguous tile fits its slot");
-static_assert(kGroups * kBM * kLdC <= kStages * kStageFloats,
-              "the partial sums fit the ring");
-static_assert(kBM == 48 && kBN == 64 && kBK == 32 && kThreads == 256,
-              "the thread layouts below are written for these sizes");
+static_assert(kABytes % 1024 == 0 && kBHalfBytes % 1024 == 0,
+              "every operand tile starts on a 1024-byte swizzle period");
+static_assert(kBK * 4 == 128, "a k-slice is one 128-byte swizzle row");
+static_assert(kBN % 8 == 0 && kBN == 48 && kBM == 64,
+              "the wgmma and epilogue layouts below are written for 64 x 48");
+static_assert(kSmemBytes <= 232448, "fits one block's shared memory");
 
 struct Params {
-    const float* U;
-    const float* S;
-    const float* rhs;
-    const float* x0;
-    const float* omega;
+    // A operands: (M, n) at row stride ld; box 32 x 64
+    CUtensorMap map_rhs, map_x0, map_p, map_w, map_x;
+    // B operands: (4, n, n) at row stride ld (U head, U remainder, U'
+    // head, U' remainder); box 32 x 48 x 2
+    CUtensorMap map_u;
+    // every array below at row stride ld and 16-byte aligned
+    const float* S;      // (ld,)
+    const float* x0;     // (M, ld)
+    const float* omega;  // (chains, ld)
     const float* tau;
-    float* x_site;
-    float* x_spec;
+    float* x_site;  // (M, ld)
+    float* x_spec;  // (M, ld)
     float* rel;
-    // scratch, written and read inside the launch
+    // scratch, written and read inside the launch; vectors (M, ld)
     float* r;         // residual (first: the eigenbasis rhs b)
     float* p;         // search direction
     float* ap;        // operator applied to p
     float* w;         // site-basis scratch
+    float* xs;        // the iterate x
     float* part_bb;   // per (row, column tile) partial ||b||^2
     float* part_rz;   // ... partial r.z of the start
     float* part_pap;  // ... partial p.Ap
@@ -117,245 +147,437 @@ struct Params {
     float* ratio;     // per row ||r||^2 / ||b||^2
     float* cbar;      // per chain mean(omega)
     unsigned long long* launches;  // the launch adds 1 (block 0, thread 0)
-    int chains, rows, n, iters, M, tiles_m, tiles_n;
+    int chains, rows, n, ld, iters, M, tiles_m, tiles_n;
 };
 
 enum Epilogue { kSiteScale, kSitePlain, kRhs, kInit, kAp };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    const size_t s = __cvta_generic_to_global(src);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(s), "r"(bytes)
+// ---------------------------------------------------------------- PTX --
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                     smem_addr(bar)),
+                 "r"(count)
                  : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    const size_t s = __cvta_generic_to_global(src);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(s), "r"(bytes)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_addr(bar)),
+        "r"(bytes)
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                     smem_addr(bar))
                  : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ uint64_t global_ns() {
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    return t;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Stages 4 floats at dst: the first `valid` from src, the rest zero. With
-// valid == 0 nothing is read; `safe` is then the (unused) source address.
-template <bool VEC>
-__device__ __forceinline__ void stage4(float* dst, const float* src,
-                                       const float* safe, int valid) {
-    if (VEC) {
-        cp_async16(dst, valid > 0 ? src : safe, 4 * valid);
-    } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            cp_async4(dst + e, e < valid ? src + e : safe, e < valid ? 4 : 0);
-    }
-}
-
-__device__ __forceinline__ int valid4(int limit, int at) {
-    return min(4, max(0, limit - at));
-}
-
-// Runs `compute(stage, prefetch)` on every k-slice of the product of rows
-// m0.. of A (M, n) with the column tile n0.. of U (TRANS: of U'), the slices
-// staged through the cp.async ring; on return every thread is past its last
-// read of the ring. A stage holds the A tile as [row][k] (row stride kLd) and
-// the U tile as [col][k] (TRANS, row stride kLd) or [k][col] (row stride
-// kLdB). Every thread copies the same (at most 4) 4-float pieces of every
-// slice, so their addresses are worked out once, before the loop.
-template <bool TRANS, bool VEC, typename Compute>
-__device__ __forceinline__ void pipeline(const float* A, const float* U,
-                                         int M, int n, int m0, int n0,
-                                         float* sm, Compute compute) {
-    const int nk = (n + kBK - 1) / kBK;
-    const int tid = threadIdx.x;
-    // k-contiguous pieces: 8 to a row; A has 48 rows (1.5 pieces a thread),
-    // the U' tile 64 (2 a thread). limit: k from which a piece is cut
-    // short, or 0 when its row is outside the matrix.
-    const float* ka_src[4];
-    int ka_dst[4], ka_lim[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const bool is_a = i < 2;
-        const int id = tid + (i & 1) * kThreads;
-        const int row = id >> 3, kc = (id & 7) * 4;
-        const int g_row = (is_a ? m0 : n0) + row;
-        const bool ok = is_a ? (row < kBM && g_row < M) : g_row < n;
-        const float* base = is_a ? A : U;
-        ka_src[i] = ok ? base + (size_t)g_row * n + kc : base;
-        ka_dst[i] = (is_a ? 0 : kAFloats) + row * kLd + kc;
-        ka_lim[i] = ok ? n - kc : 0;
-    }
-    // n-contiguous pieces of the U tile: 16 to a row of 64, 2 a thread
-    const float* nb_src[2];
-    int nb_dst[2], nb_cols[2], nb_row[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int id = tid + i * kThreads;
-        const int krow = id >> 4, nc = (id & 15) * 4;
-        nb_cols[i] = valid4(n, n0 + nc);
-        nb_src[i] = nb_cols[i] > 0 ? U + (size_t)krow * n + n0 + nc : U;
-        nb_dst[i] = kAFloats + krow * kLdB + nc;
-        nb_row[i] = krow;
-    }
-    auto load_stage = [&](int kt) {
-        float* st = sm + (kt % kStages) * kStageFloats;
-        const int k0 = kt * kBK;
-#pragma unroll
-        for (int i = 0; i < (TRANS ? 4 : 2); ++i) {
-            if (i == 1 && tid >= kBM * 8 - kThreads) continue;
-            const int valid = valid4(ka_lim[i], k0);
-            stage4<VEC>(st + ka_dst[i], ka_src[i] + (valid > 0 ? k0 : 0),
-                        ka_src[i], valid);
+// Waits for the phase of `bar` with this parity to complete. A wait that
+// lasts 20 s traps, so that a fault in the ring ends the launch with an
+// error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t a = smem_addr(bar);
+    uint64_t since = 0;
+    for (uint32_t polls = 1;; ++polls) {
+        uint32_t done;
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done)
+            : "r"(a), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (polls % 4096 == 0) {
+            const uint64_t now = global_ns();
+            if (since == 0)
+                since = now;
+            else if (now - since > 20000000000ull)
+                __trap();
         }
-        if (!TRANS) {
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                const int valid = k0 + nb_row[i] < n ? nb_cols[i] : 0;
-                stage4<VEC>(st + nb_dst[i],
-                            nb_src[i] + (valid > 0 ? (size_t)k0 * n : 0),
-                            nb_src[i], valid);
-            }
-        }
-    };
-    for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nk) load_stage(s);
-        cp_async_commit();
     }
-    for (int kt = 0; kt < nk; ++kt) {
-        cp_async_wait<kStages - 2>();
-        __syncthreads();  // slice kt has landed; slice kt - 1 is consumed
-        // compute calls this once, after its own shared-memory loads: the
-        // copies of a slice keep the load pipe busy for about as long as
-        // its arithmetic takes, and loads queued behind them would wait
-        auto prefetch = [&]() {
-            if (kt + kStages - 1 < nk) load_stage(kt + kStages - 1);
-            cp_async_commit();
-        };
-        compute(sm + (kt % kStages) * kStageFloats, prefetch);
-    }
-    cp_async_wait<0>();
-    __syncthreads();
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+        "r"(c1)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2,
+                                       uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+        "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// orders this thread's ordinary global accesses with later (or earlier)
+// accesses of the async proxy (TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float lds(uint32_t addr) {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void consumers_sync() {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with the 128-byte
+// swizzle: 8-row groups 1024 bytes apart (SBO), the leading offset unused
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+    const uint64_t a = smem_addr(tile);
+    return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d += A (64 x 8, in registers: the m16n8k8 layout, one 16-row slab a
+// warp) x B (8 x 48, K-major in shared memory at `desc`), TF32 in, float32
+// sums
+__device__ __forceinline__ void wgmma_tf32(float (&d)[24],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d += A (64 x 8, in registers) x B (8 x 96: rows 0-47 the head, 48-95 the
+// remainder of a B slice, K-major in shared memory at `desc`)
+__device__ __forceinline__ void wgmma_tf32_n96(float (&d)[48],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+          "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+          "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // x ~ hi + lo, both TF32 numbers (float32 bits with the low 13 mantissa
 // bits clear): hi is x rounded to nearest at 10 mantissa bits, lo the exact
-// float32 remainder cut to 10 bits, so |x - hi - lo| <= 2^-21 |x|. Integer
-// arithmetic on the bits; cvt.rna.tf32.f32 computes the same hi but runs
-// at a fraction of the rate.
+// float32 remainder cut to 10 bits, so |x - hi - lo| <= 2^-22 |x|. Integer
+// arithmetic on the bits, the same as ops/cuda_cg.py:tf32_split.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
     hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
     lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// ------------------------------------------------------------ the ring --
+
+struct Ring {
+    char* stages;     // kStages x kStageBytes, 1024-byte aligned
+    uint64_t* full;   // TMA bytes landed (1 arrival + the transaction)
+    uint64_t* empty;  // the consuming warpgroup's 4 warps are done
+    float* sums;      // kConsumers x (kBM x kLdC) staged sums
+};
+
+__host__ __device__ __forceinline__ int tiles_of(int v, int tile) {
+    return (v + tile - 1) / tile;
 }
 
-// The tile's product on the tensor cores; leaves each k-group's partial
-// sums in sm[group][row][col] (row stride kLdC).
-//   TRANS:  B[k, col] = U[n0 + col, k]   (A U')
-//   else :  B[k, col] = U[k, n0 + col]   (A U)
-template <bool TRANS, bool VEC>
-__device__ __forceinline__ void product(const float* A, const float* U,
-                                        int M, int n, int m0, int n0,
-                                        float* sm) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
-    const int kg = (warp >> 1) * 8;          // this k-group's 8 of the slice
-    const int nh = (warp & 1) * 32;          // this warp's half of the columns
-    float acc[3][4][4];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+// The producer's part of one tile: every k-slice of the A rows m0.. and
+// of the B rows n0.. (sel 0: U, for A U'; sel 2: U', for A U). `q` counts
+// the slices this block has put through the ring, in every role alike.
+__device__ __forceinline__ void produce(const Params& P, const Ring& R,
+                                        const CUtensorMap* amap, int sel,
+                                        int m0, int n0, uint32_t& q) {
+    const int nk = tiles_of(P.n, kBK);
+    for (int kt = 0; kt < nk; ++kt, ++q) {
+        const int stage = q % kStages;
+        const uint32_t parity = (q / kStages) & 1;
+        mbar_wait(&R.empty[stage], parity ^ 1);
+        char* st = R.stages + stage * kStageBytes;
+        mbar_expect_tx(&R.full[stage], kStageBytes);
+        tma_2d(st, amap, kt * kBK, m0, &R.full[stage]);
+        tma_3d(st + kABytes, &P.map_u, kt * kBK, n0, sel, &R.full[stage]);
+    }
+}
 
-    pipeline<TRANS, VEC>(A, U, M, n, m0, n0, sm, [&](const float* as,
-                                                     auto prefetch) {
-        const float* bs = as + kAFloats;
-        float af[3][4], bf[4][2];
+// A consumer warpgroup's part of one tile's product: the sum over its
+// k-slices (kt % kConsumers == wg), left in sums[wg] as [row][col].
+// Per 8 k, one wgmma multiplies the A remainder by the B head (48
+// columns) and one the A head by the B head and remainder together (96
+// columns: the two halves of the slice lie one after the other); the
+// three sums meet at the end, small terms first: (lo*hi + hi*lo) + hi*hi.
+__device__ __forceinline__ void consume(const Params& P, const Ring& R,
+                                        int wg, uint32_t& q) {
+    const int nk = tiles_of(P.n, kBK);
+    const int wt = threadIdx.x & 127;
+    const int warp = wt >> 5, lane = wt & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = 16 * warp + g;  // rows r0 and r0 + 8 of the A slice
+    float lh[24], hh[48];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-            const float* a0 = as + (16 * i + g) * kLd + kg + t;
-            af[i][0] = a0[0];
-            af[i][1] = a0[8 * kLd];
-            af[i][2] = a0[4];
-            af[i][3] = a0[8 * kLd + 4];
+    for (int i = 0; i < 24; ++i) lh[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 48; ++i) hh[i] = 0.0f;
+
+    for (int kt = wg; kt < nk; kt += kConsumers) {
+        const uint32_t at = q + kt;
+        const int stage = at % kStages;
+        mbar_wait(&R.full[stage], (at / kStages) & 1);
+        const char* st = R.stages + stage * kStageBytes;
+        // the A fragments of the slice's four 8-k steps: element (row, k)
+        // of the swizzled tile sits at row * 128 + ((k / 4) ^ (row % 8))
+        // * 16 + (k % 4) * 4; rows r0 and r0 + 8 share row % 8 == g, so
+        // the 32 lanes of a load hit 32 banks
+        const uint32_t a_row = smem_addr(st) + r0 * 128 + t * 4;
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+            const uint32_t c_lo = a_row + ((2 * s) ^ g) * 16;
+            const uint32_t c_hi = a_row + ((2 * s + 1) ^ g) * 16;
+            split_tf32(lds(c_lo), ah[s][0], al[s][0]);
+            split_tf32(lds(c_lo + 8 * 128), ah[s][1], al[s][1]);
+            split_tf32(lds(c_hi), ah[s][2], al[s][2]);
+            split_tf32(lds(c_hi + 8 * 128), ah[s][3], al[s][3]);
         }
+        const char* b = st + kABytes;
+        wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = nh + 8 * j + g;
-            const float* b0 = TRANS ? bs + col * kLd + kg + t
-                                    : bs + (kg + t) * kLdB + col;
-            bf[j][0] = b0[0];
-            bf[j][1] = b0[TRANS ? 4 : 4 * kLdB];
+        for (int s = 0; s < 4; ++s) {
+            // 8 k are 32 bytes along the swizzled 128-byte row
+            wgmma_tf32(lh, al[s], sw128_desc(b + 32 * s));
+            wgmma_tf32_n96(hh, ah[s], sw128_desc(b + 32 * s));
         }
-        prefetch();
-        uint32_t ah[3][4], al[3][4], bh[4][2], bl[4][2];
+        wgmma_commit();
+        wgmma_wait_all();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&R.empty[stage]);
+    }
+    q += nk;
+
+    // accumulator layout: rows 16 warp + g (+ 8), columns 8 j + 2 t (+ 1);
+    // hh's columns 48.. are the A head times the B remainder
+    float* mine = R.sums + wg * kCFloats;
 #pragma unroll
-        for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < kBN / 8; ++j) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            v[e] = (lh[4 * j + e] + hh[24 + 4 * j + e]) + hh[4 * j + e];
+        float* at0 = mine + r0 * kLdC + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(at0) = make_float2(v[0], v[1]);
+        *reinterpret_cast<float2*>(at0 + 8 * kLdC) = make_float2(v[2], v[3]);
+    }
+}
+
+// ------------------------------------------------------------ epilogue --
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+}
+
+// The phase's elementwise work on one tile and, where the phase needs a row
+// dot product, the tile's partial of it. Thread (row, quarter) owns the 12
+// columns from 12 quarter, as 3 runs of 4; the two warpgroups' sums are
+// added even + odd. Every array is at row stride ld and 16-byte aligned, so
+// a run is one 16-byte access; in a run that reaches past n the columns
+// from n on are padding, written but never read, and left out of the dot.
+template <int EPI>
+__device__ __forceinline__ void epilogue(const Params& P, const Ring& R,
+                                         int m0, int n0, int tn) {
+    constexpr bool kDot = EPI == kRhs || EPI == kInit || EPI == kAp;
+    const int ct = threadIdx.x;
+    const int row = ct >> 2, quarter = ct & 3;
+    const int m = m0 + row, n = P.n;
+    const bool row_ok = m < P.M;
+    const int chain = row_ok ? m / P.rows : 0;
+    const size_t at = (size_t)m * P.ld;
+    float dot = 0.0f;
+#pragma unroll
+    for (int e4 = 0; e4 < 3; ++e4) {
+        const int c = 12 * quarter + 4 * e4, j = n0 + c;
+        const int cnt = row_ok ? min(4, max(0, n - j)) : 0;
+        if (cnt == 0) continue;
+        float4 a = ld4(R.sums + row * kLdC + c);
+#pragma unroll
+        for (int w = 1; w < kConsumers; ++w) {
+            const float4 b = ld4(R.sums + w * kCFloats + row * kLdC + c);
+            a = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+        }
+        float v[4] = {a.x, a.y, a.z, a.w};
+        if (EPI == kSiteScale) {
+            const float4 om = ld4(P.omega + (size_t)chain * P.ld + j);
+            st4(P.w + at + j,
+                make_float4(v[0] * om.x, v[1] * om.y, v[2] * om.z,
+                            v[3] * om.w));
+        } else if (EPI == kSitePlain) {
+            st4(P.x_site + at + j, make_float4(v[0], v[1], v[2], v[3]));
+        } else if (EPI == kRhs) {
+            st4(P.r + at + j, make_float4(v[0], v[1], v[2], v[3]));
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                split_tf32(af[i][e], ah[i][e], al[i][e]);
+                if (e < cnt) dot += v[e] * v[e];
+        } else if (EPI == kInit) {
+            const float tc = P.tau[chain], cb = P.cbar[chain];
+            const float4 s4 = ld4(P.S + j), x4 = ld4(P.x0 + at + j),
+                         r4 = ld4(P.r + at + j);
+            const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+            const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+            float rv[4] = {r4.x, r4.y, r4.z, r4.w}, zv[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+            for (int e = 0; e < 4; ++e) {
+                const float ts = tc * sv[e];
+                rv[e] = rv[e] - (ts * xv[e] + v[e]);
+                zv[e] = (1.0f / (ts + cb)) * rv[e];
+                if (e < cnt) dot += rv[e] * zv[e];
+            }
+            st4(P.r + at + j, make_float4(rv[0], rv[1], rv[2], rv[3]));
+            st4(P.p + at + j, make_float4(zv[0], zv[1], zv[2], zv[3]));
+        } else {
+            const float tc = P.tau[chain];
+            const float4 s4 = ld4(P.S + j), p4 = ld4(P.p + at + j);
+            const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+            const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
-                split_tf32(bf[j][e], bh[j][e], bl[j][e]);
-        // small terms first; consecutive mma write different accumulators
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
-    });
-
-    float* mine = sm + (warp >> 1) * kBM * kLdC;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            float* at = mine + (16 * i + g) * kLdC + nh + 8 * j + 2 * t;
-            *reinterpret_cast<float2*>(at) =
-                make_float2(acc[i][j][0], acc[i][j][1]);
-            *reinterpret_cast<float2*>(at + 8 * kLdC) =
-                make_float2(acc[i][j][2], acc[i][j][3]);
+            for (int e = 0; e < 4; ++e) {
+                v[e] = tc * sv[e] * pv[e] + v[e];
+                if (e < cnt) dot += pv[e] * v[e];
+            }
+            st4(P.ap + at + j, make_float4(v[0], v[1], v[2], v[3]));
         }
-    __syncthreads();
+    }
+    if (kDot) {
+        // the 4 threads of a row are 4 consecutive lanes
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        float* parts = EPI == kRhs    ? P.part_bb
+                       : EPI == kInit ? P.part_rz
+                                      : P.part_pap;
+        if (quarter == 0 && row_ok) parts[(size_t)m * P.tiles_n + tn] = dot;
+    }
 }
 
-// Sum over the 16 threads that share a tile row (half a warp), fixed order.
-__device__ __forceinline__ float row_threads_sum(float v) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
+// ------------------------------------------------------------- phases --
+
+// One product phase: the tiles job = blockIdx.x, + gridDim.x, ... of
+// `jobs`; a job below `split` multiplies amap0 (epilogue EPI0), one above
+// amap1 (EPI1) at job - split. The producer warp feeds the ring; the
+// consumers multiply and run the epilogue.
+template <int EPI0, int EPI1>
+__device__ __forceinline__ uint32_t product_phase(
+    const Params& P, const Ring& R, const CUtensorMap* amap0,
+    const CUtensorMap* amap1, int split, int jobs, uint32_t q) {
+    constexpr bool kTrans0 = EPI0 == kSiteScale || EPI0 == kSitePlain;
+    constexpr bool kTrans1 = EPI1 == kSiteScale || EPI1 == kSitePlain;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == kConsumerThreads / 32) {
+        if (lane == 0) {
+            for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
+                const bool second = job >= split;
+                const int jb = second ? job - split : job;
+                const int tm = jb / P.tiles_n, tn = jb - tm * P.tiles_n;
+                produce(P, R, second ? amap1 : amap0,
+                        (second ? kTrans1 : kTrans0) ? 0 : 2, tm * kBM,
+                        tn * kBN, q);
+            }
+        }
+        __syncwarp();
+        return q;
+    }
+    const int wg = threadIdx.x >> 7;
+    for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
+        const bool second = job >= split;
+        const int jb = second ? job - split : job;
+        const int tm = jb / P.tiles_n, tn = jb - tm * P.tiles_n;
+        consume(P, R, wg, q);
+        consumers_sync();  // the warpgroups' sums are staged
+        if (threadIdx.x < kEpilogueThreads) {
+            if (second)
+                epilogue<EPI1>(P, R, tm * kBM, tn * kBN, tn);
+            else
+                epilogue<EPI0>(P, R, tm * kBM, tn * kBN, tn);
+        }
+        consumers_sync();  // the staged sums are read
+    }
+    fence_proxy_async();
+    return q;
+}
+
+// A phase of one product over all tiles.
+template <int EPI>
+__device__ __forceinline__ uint32_t phase(const Params& P, const Ring& R,
+                                          const CUtensorMap* amap,
+                                          uint32_t q) {
+    const int total = P.tiles_m * P.tiles_n;
+    return product_phase<EPI, EPI>(P, R, amap, amap, total, total, q);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -365,287 +587,239 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// v[0 .. cnt) = src[0 .. cnt), the rest 0; with VEC, cnt is 0 or 4 and src
-// is 16-byte aligned.
-template <bool VEC>
-__device__ __forceinline__ void load4(const float* src, int cnt,
-                                      float (&v)[4]) {
-    if (VEC) {
-        const float4 q = cnt > 0 ? *reinterpret_cast<const float4*>(src)
-                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-    } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = e < cnt ? src[e] : 0.0f;
-    }
-}
-
-template <bool VEC>
-__device__ __forceinline__ void store4(float* dst, int cnt,
-                                       const float (&v)[4]) {
-    if (VEC) {
-        if (cnt > 0)
-            *reinterpret_cast<float4*>(dst) =
-                make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            if (e < cnt) dst[e] = v[e];
-    }
-}
-
-// One output tile: the product, then the phase's elementwise work and,
-// where the phase needs a row dot product, the tile's partial of it. In the
-// epilogue thread (ty, tx) owns rows ty, ty + 16, ty + 32 and the 4 columns
-// from 4 tx.
-template <int EPI, bool VEC>
-__device__ __noinline__ void tile(const Params& P, const float* A, float* sm,
-                                  int job) {
-    constexpr bool kTrans = EPI == kSiteScale || EPI == kSitePlain;
-    constexpr bool kDot = EPI == kRhs || EPI == kInit || EPI == kAp;
-    const int tm = job / P.tiles_n, tn = job - tm * P.tiles_n;
-    const int m0 = tm * kBM, n0 = tn * kBN, n = P.n;
-    product<kTrans, VEC>(A, P.U, P.M, n, m0, n0, sm);
-
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-    const int j = n0 + 4 * tx;
-    const int cols = valid4(n, j);
-#pragma unroll
-    for (int rr = 0; rr < 3; ++rr) {
-        const int row = ty + 16 * rr, m = m0 + row;
-        const bool row_ok = m < P.M;
-        const int cnt = row_ok ? cols : 0;
-        const int chain = row_ok ? m / P.rows : 0;
-        const size_t at = (size_t)m * n + j;
-        // the k-groups' partial sums, in group order
-        float v[4];
-        {
-            const float* part = sm + row * kLdC + 4 * tx;
-            float4 q = *reinterpret_cast<const float4*>(part);
-#pragma unroll
-            for (int grp = 1; grp < kGroups; ++grp) {
-                const float4 o = *reinterpret_cast<const float4*>(
-                    part + grp * kBM * kLdC);
-                q.x += o.x, q.y += o.y, q.z += o.z, q.w += o.w;
-            }
-            v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-        }
-        float dot = 0.0f;
-        if (cnt > 0) {
-            if (EPI == kSiteScale) {
-                float om[4];
-                load4<VEC>(P.omega + (size_t)chain * n + j, cnt, om);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) v[e] *= om[e];
-                store4<VEC>(P.w + at, cnt, v);
-            } else if (EPI == kSitePlain) {
-                store4<VEC>(P.x_site + at, cnt, v);
-            } else if (EPI == kRhs) {
-                store4<VEC>(P.r + at, cnt, v);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) dot += v[e] * v[e];
-            } else if (EPI == kInit) {
-                const float tc = P.tau[chain], cb = P.cbar[chain];
-                float sv[4], xv[4], rv[4], zv[4];
-                load4<VEC>(P.S + j, cnt, sv);
-                load4<VEC>(P.x0 + at, cnt, xv);
-                load4<VEC>(P.r + at, cnt, rv);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const float ts = tc * sv[e];
-                    rv[e] = rv[e] - (ts * xv[e] + v[e]);
-                    zv[e] = (1.0f / (ts + cb)) * rv[e];
-                    if (e < cnt) dot += rv[e] * zv[e];
-                }
-                store4<VEC>(P.r + at, cnt, rv);
-                store4<VEC>(P.p + at, cnt, zv);
-            } else {
-                const float tc = P.tau[chain];
-                float sv[4], pv[4];
-                load4<VEC>(P.S + j, cnt, sv);
-                load4<VEC>(P.p + at, cnt, pv);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    v[e] = tc * sv[e] * pv[e] + v[e];
-                    dot += pv[e] * v[e];
-                }
-                store4<VEC>(P.ap + at, cnt, v);
-            }
-        }
-        if (kDot) {
-            dot = row_threads_sum(dot);
-            float* parts = EPI == kRhs    ? P.part_bb
-                           : EPI == kInit ? P.part_rz
-                                          : P.part_pap;
-            if (tx == 0 && row_ok) parts[(size_t)m * P.tiles_n + tn] = dot;
-        }
-    }
-    __syncthreads();  // the next tile reuses the shared memory
-}
-
-template <int EPI, bool VEC>
-__device__ __forceinline__ void tiles(const Params& P, const float* A,
-                                      float* sm) {
-    const int total = P.tiles_m * P.tiles_n;
-    for (int job = blockIdx.x; job < total; job += gridDim.x)
-        tile<EPI, VEC>(P, A, sm, job);
-}
-
-__device__ __forceinline__ float sum_parts(const float* parts, int m,
-                                           int tiles_n) {
+// A lane's share of a row's per-tile partials: the tiles lane, lane + 32,
+// ... in order (warp_sum then adds the lanes in a fixed tree).
+__device__ __forceinline__ float lane_parts(const float* parts, int m,
+                                            int tiles_n, int lane) {
     float s = 0.0f;
-    for (int tn = 0; tn < tiles_n; ++tn) s += parts[(size_t)m * tiles_n + tn];
+    for (int tn = lane; tn < tiles_n; tn += 32)
+        s += parts[(size_t)m * tiles_n + tn];
     return s;
 }
 
-// The vector part of iteration `it`, one warp per row: alpha from p.Ap,
-// x and r, the new r.z, beta and p. `update` false (iters == 0) only copies
-// x0. On the last pass the row's ||r||^2 / ||b||^2 is left in P.ratio. A
-// lane takes every 32nd element, kBatch of them at a time: all of a batch's
-// loads come before its first store, so that they overlap.
-constexpr int kBatch = 8;
+// The sum of v over the 64 lanes of a warp pair: each warp in a fixed
+// tree, then warp 0's + warp 1's through shared memory.
+__device__ __forceinline__ float pair_sum(float v, float* red, int pair,
+                                          int half, int lane) {
+    v = warp_sum(v);
+    if (lane == 0) red[2 * pair + half] = v;
+    asm volatile("bar.sync %0, 64;\n" ::"r"(2 + pair) : "memory");
+    const float s = red[2 * pair] + red[2 * pair + 1];
+    asm volatile("bar.sync %0, 64;\n" ::"r"(2 + pair) : "memory");
+    return s;
+}
+
+// The vector part of iteration `it`, two warps per row (the consumer warps
+// in pairs): alpha from p.Ap, r and the new r.z, beta, then x and p.
+// `update` false (iters == 0) only copies x0 to x. On the last pass x is
+// also written to x_spec and the row's ||r||^2 / ||b||^2 is left in
+// P.ratio, and p is not needed. The row's 16-byte runs go to the pair's 64
+// lanes in turn (run c to lane c % 64), kBatch of them a lane at a time:
+// all of a batch's loads come before its first store, so that they
+// overlap. A lane's sums run over its elements in order, then over the
+// lanes in a fixed tree.
+constexpr int kBatch = 4;
+constexpr int kPairs = kConsumerThreads / 64;
 
 __device__ __forceinline__ void row_pass(const Params& P, int it, bool update,
                                          bool last) {
+    __shared__ float red[2 * kPairs];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int n = P.n;
-    for (int m = blockIdx.x + gridDim.x * warp; m < P.M;
-         m += gridDim.x * kWarps) {
+    if (warp >= 2 * kPairs) return;
+    const int pair = warp >> 1, half = warp & 1;
+    const int n = P.n, runs = P.ld / 4;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int m = blockIdx.x + gridDim.x * pair; m < P.M;
+         m += gridDim.x * kPairs) {
         const int chain = m / P.rows;
         const float tc = P.tau[chain], cb = P.cbar[chain];
-        const size_t base = (size_t)m * n;
-        const float* xin = (it == 0 ? P.x0 : P.x_spec) + base;
-        float* x = P.x_spec + base;
-        float* r = P.r + base;
-        float* p = P.p + base;
-        const float* ap = P.ap + base;
-        float rz = 0.0f, alpha = 0.0f, rz_new = 0.0f, rr2 = 0.0f;
+        const size_t base = (size_t)m * P.ld;
+        const float4* xin =
+            reinterpret_cast<const float4*>((it == 0 ? P.x0 : P.xs) + base);
+        float4* x = reinterpret_cast<float4*>(P.xs + base);
+        float4* xo = reinterpret_cast<float4*>(P.x_spec + base);
+        float4* r = reinterpret_cast<float4*>(P.r + base);
+        float4* p = reinterpret_cast<float4*>(P.p + base);
+        const float4* ap = reinterpret_cast<const float4*>(P.ap + base);
+        const float4* S = reinterpret_cast<const float4*>(P.S);
+        // the partials' loads are issued with the first batch's
+        float rz = 0.0f, pap = 0.0f;
         if (update) {
-            rz = it == 0 ? sum_parts(P.part_rz, m, P.tiles_n) : P.rz[m];
-            alpha = rz / fmaxf(sum_parts(P.part_pap, m, P.tiles_n), kTiny);
+            rz = it == 0 ? lane_parts(P.part_rz, m, P.tiles_n, lane)
+                         : P.rz[m];
+            pap = lane_parts(P.part_pap, m, P.tiles_n, lane);
         }
-        for (int j0 = lane; j0 < n; j0 += 32 * kBatch) {
-            float pv[kBatch], xv[kBatch], rv[kBatch], av[kBatch], sv[kBatch];
+        bool have_alpha = !update;
+        float alpha = 0.0f, rz_part = 0.0f, rr_part = 0.0f;
+        // pass 1: r -= alpha Ap, and the sums of the new r
+        for (int s0 = 32 * half; s0 < runs || !have_alpha;
+             s0 += 64 * kBatch) {
+            float4 rv[kBatch], av[kBatch], sv[kBatch];
 #pragma unroll
             for (int u = 0; u < kBatch; ++u) {
-                const int j = j0 + 32 * u;
-                const bool ok = j < n;
-                xv[u] = ok ? xin[j] : 0.0f;
-                rv[u] = ok ? r[j] : 0.0f;
-                pv[u] = ok && update ? p[j] : 0.0f;
-                av[u] = ok && update ? ap[j] : 0.0f;
-                sv[u] = ok && update ? P.S[j] : 1.0f;
+                const int c = s0 + lane + 64 * u;
+                const bool ok = c < runs;
+                rv[u] = ok ? r[c] : zero;
+                av[u] = ok && update ? ap[c] : zero;
+                sv[u] = ok && update ? S[c] : zero;
+            }
+            if (!have_alpha) {
+                if (it == 0) rz = warp_sum(rz);
+                alpha = rz / fmaxf(warp_sum(pap), kTiny);
+                have_alpha = true;
             }
 #pragma unroll
             for (int u = 0; u < kBatch; ++u) {
-                const int j = j0 + 32 * u;
-                if (j >= n) continue;
-                const float rr = update ? rv[u] - alpha * av[u] : rv[u];
-                x[j] = update ? xv[u] + alpha * pv[u] : xv[u];
-                if (update) {
-                    r[j] = rr;
-                    rz_new += rr * ((1.0f / (tc * sv[u] + cb)) * rr);
+                const int c = s0 + lane + 64 * u;
+                if (c >= runs) continue;
+                const float re[4] = {rv[u].x, rv[u].y, rv[u].z, rv[u].w};
+                const float ae[4] = {av[u].x, av[u].y, av[u].z, av[u].w};
+                const float se[4] = {sv[u].x, sv[u].y, sv[u].z, sv[u].w};
+                float rn[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    rn[e] = update ? re[e] - alpha * ae[e] : re[e];
+                    if (4 * c + e < n) {
+                        if (update)
+                            rz_part +=
+                                rn[e] * ((1.0f / (tc * se[e] + cb)) * rn[e]);
+                        rr_part += rn[e] * rn[e];
+                    }
                 }
-                rr2 += rr * rr;
+                if (update) r[c] = make_float4(rn[0], rn[1], rn[2], rn[3]);
             }
         }
-        if (update && !last) {
-            rz_new = warp_sum(rz_new);
-            const float beta = rz_new / fmaxf(rz, kTiny);
-            for (int j0 = lane; j0 < n; j0 += 32 * kBatch) {
-                float pv[kBatch], rv[kBatch], sv[kBatch];
-#pragma unroll
-                for (int u = 0; u < kBatch; ++u) {
-                    const int j = j0 + 32 * u;
-                    const bool ok = j < n;
-                    rv[u] = ok ? r[j] : 0.0f;
-                    pv[u] = ok ? p[j] : 0.0f;
-                    sv[u] = ok ? P.S[j] : 1.0f;
-                }
-#pragma unroll
-                for (int u = 0; u < kBatch; ++u) {
-                    const int j = j0 + 32 * u;
-                    if (j < n)
-                        p[j] = (1.0f / (tc * sv[u] + cb)) * rv[u]
-                               + beta * pv[u];
-                }
-            }
-            if (lane == 0) P.rz[m] = rz_new;
+        float beta = 0.0f;
+        const bool new_p = update && !last;
+        if (new_p) {
+            const float rz_new = pair_sum(rz_part, red, pair, half, lane);
+            beta = rz_new / fmaxf(rz, kTiny);
+            if (half == 0 && lane == 0) P.rz[m] = rz_new;
         }
         if (last) {
-            rr2 = warp_sum(rr2);
-            const float bb = sum_parts(P.part_bb, m, P.tiles_n);
-            if (lane == 0) P.ratio[m] = rr2 / fmaxf(bb, kTiny);
+            const float rr2 = pair_sum(rr_part, red, pair, half, lane);
+            const float bb = warp_sum(lane_parts(P.part_bb, m, P.tiles_n,
+                                                 lane));
+            if (half == 0 && lane == 0) P.ratio[m] = rr2 / fmaxf(bb, kTiny);
+        }
+        // pass 2: x += alpha p and p = M^-1 r + beta p
+        for (int s0 = 32 * half; s0 < runs; s0 += 64 * kBatch) {
+            float4 xv[kBatch], pv[kBatch], rv[kBatch], sv[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+                const int c = s0 + lane + 64 * u;
+                const bool ok = c < runs;
+                xv[u] = ok ? xin[c] : zero;
+                pv[u] = ok && update ? p[c] : zero;
+                rv[u] = ok && new_p ? r[c] : zero;
+                sv[u] = ok && new_p ? S[c] : zero;
+            }
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+                const int c = s0 + lane + 64 * u;
+                if (c >= runs) continue;
+                const float xe[4] = {xv[u].x, xv[u].y, xv[u].z, xv[u].w};
+                const float pe[4] = {pv[u].x, pv[u].y, pv[u].z, pv[u].w};
+                const float re[4] = {rv[u].x, rv[u].y, rv[u].z, rv[u].w};
+                const float se[4] = {sv[u].x, sv[u].y, sv[u].z, sv[u].w};
+                float xn[4], pn[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    xn[e] = update ? xe[e] + alpha * pe[e] : xe[e];
+                    pn[e] = (1.0f / (tc * se[e] + cb)) * re[e] + beta * pe[e];
+                }
+                const float4 x4 = make_float4(xn[0], xn[1], xn[2], xn[3]);
+                x[c] = x4;
+                if (last) xo[c] = x4;
+                if (new_p) p[c] = make_float4(pn[0], pn[1], pn[2], pn[3]);
+            }
         }
     }
+    fence_proxy_async();
 }
 
-template <bool VEC>
+// every thread of the grid; the proxy fences order the ordinary stores
+// before it with the TMA reads after it
+__device__ __forceinline__ void grid_barrier(cg::grid_group& grid) {
+    grid.sync();
+    fence_proxy_async();
+}
+
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 icar_cg_kernel(const __grid_constant__ Params P) {
-    extern __shared__ __align__(16) float sm[];
+    extern __shared__ __align__(16) char smem_raw[];
     cg::grid_group grid = cg::this_grid();
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int total = P.tiles_m * P.tiles_n;
     if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(P.launches, 1ULL);
 
-    // b = rhs U with ||b||^2, w = omega o (x0 U'), and mean(omega)
-    for (int job = blockIdx.x; job < 2 * total; job += gridDim.x) {
-        if (job < total)
-            tile<kRhs, VEC>(P, P.rhs, sm, job);
-        else
-            tile<kSiteScale, VEC>(P, P.x0, sm, job - total);
+    Ring R;
+    {
+        const uintptr_t base = reinterpret_cast<uintptr_t>(smem_raw);
+        R.stages = smem_raw + ((1024 - base % 1024) % 1024);
+        R.sums = reinterpret_cast<float*>(R.stages + kStages * kStageBytes);
+        R.full = reinterpret_cast<uint64_t*>(R.sums + kConsumers * kCFloats);
+        R.empty = R.full + kStages;
     }
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(&R.full[s], 1);
+            mbar_init(&R.empty[s], 4);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    uint32_t q = 0;  // k-slices through the ring, the same in every role
+
+    // b = rhs U with ||b||^2, w = omega o (x0 U'), and mean(omega)
+    q = product_phase<kRhs, kSiteScale>(P, R, &P.map_rhs, &P.map_x0, total,
+                                        2 * total, q);
     for (int c = blockIdx.x * kWarps + warp; c < P.chains;
          c += gridDim.x * kWarps) {
         float s = 0.0f;
-        for (int j = lane; j < P.n; j += 32) s += P.omega[(size_t)c * P.n + j];
+        for (int j = lane; j < P.n; j += 32)
+            s += P.omega[(size_t)c * P.ld + j];
         s = warp_sum(s);
         if (lane == 0) P.cbar[c] = s / (float)P.n;
     }
-    grid.sync();
+    grid_barrier(grid);
     // r = b - A x0, p = z = M^-1 r, r.z
-    tiles<kInit, VEC>(P, P.w, sm);
-    grid.sync();
+    q = phase<kInit>(P, R, &P.map_w, q);
+    grid_barrier(grid);
 
     for (int it = 0; it < P.iters; ++it) {
-        tiles<kSiteScale, VEC>(P, P.p, sm);
-        grid.sync();
-        tiles<kAp, VEC>(P, P.w, sm);
-        grid.sync();
+        q = phase<kSiteScale>(P, R, &P.map_p, q);
+        grid_barrier(grid);
+        q = phase<kAp>(P, R, &P.map_w, q);
+        grid_barrier(grid);
         row_pass(P, it, true, it == P.iters - 1);
-        grid.sync();
+        grid_barrier(grid);
     }
     if (P.iters == 0) {
         row_pass(P, 0, false, true);
-        grid.sync();
+        grid_barrier(grid);
     }
 
-    tiles<kSitePlain, VEC>(P, P.x_spec, sm);
+    (void)phase<kSitePlain>(P, R, &P.map_x, q);
     for (int c = blockIdx.x * kThreads + threadIdx.x; c < P.chains;
          c += gridDim.x * kThreads) {
         float worst = 0.0f;
-        for (int q = 0; q < P.rows; ++q)
-            worst = fmaxf(worst, P.ratio[(size_t)c * P.rows + q]);
+        for (int k = 0; k < P.rows; ++k)
+            worst = fmaxf(worst, P.ratio[(size_t)c * P.rows + k]);
         P.rel[c] = sqrtf(worst);
     }
 }
 
-size_t round4(size_t v) { return (v + 3) / 4 * 4; }
-
-int tiles_of(int v, int tile) { return (v + tile - 1) / tile; }
-
-// Blocks a cooperative launch of `kernel` may hold per SM times the SM
+// Blocks a cooperative launch of the kernel may hold per SM times the SM
 // count, from the occupancy query (cached per device); 0 with *err set when
 // the device cannot run it.
-template <bool VEC>
 int max_grid(cudaError_t* err) {
     static int cached[64] = {0};
     int dev = 0;
     *err = cudaGetDevice(&dev);
     if (*err != cudaSuccess) return 0;
     if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
-    *err = cudaFuncSetAttribute(icar_cg_kernel<VEC>,
+    *err = cudaFuncSetAttribute(icar_cg_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kSmemBytes);
     if (*err != cudaSuccess) return 0;
@@ -655,7 +829,7 @@ int max_grid(cudaError_t* err) {
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (*err != cudaSuccess) return 0;
     *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, icar_cg_kernel<VEC>, kThreads, kSmemBytes);
+        &per_sm, icar_cg_kernel, kThreads, kSmemBytes);
     if (*err != cudaSuccess) return 0;
     if (!coop) {
         *err = cudaErrorNotSupported;
@@ -670,49 +844,101 @@ int max_grid(cudaError_t* err) {
     return grid;
 }
 
-template <bool VEC>
-int launch(Params P, cudaStream_t stream) {
-    cudaError_t err = cudaSuccess;
-    const int limit = max_grid<VEC>(&err);
-    if (err != cudaSuccess) return (int)err;
-    // the start phase has the most jobs: two products' tiles
-    const long long jobs = 2LL * P.tiles_m * P.tiles_n;
-    const int grid = (int)(jobs < limit ? jobs : limit);
-    void* args[] = {&P};
-    err = cudaLaunchCooperativeKernel((void*)icar_cg_kernel<VEC>, dim3(grid),
-                                      dim3(kThreads), args, kSmemBytes,
-                                      stream);
-    return (int)err;
+// ------------------------------------------------------- tensor maps --
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// A tensor map's encoding failed: the error code returned is this plus the
+// driver's CUresult.
+constexpr int kEncodeError = 100000;
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library links no driver library of its own
+EncodeTiled encode_fn(cudaError_t* err) {
+    static EncodeTiled fn = nullptr;
+    if (fn != nullptr) return fn;
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    *err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                            12000, cudaEnableDefault, &found);
+#else
+    *err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault, &found);
+#endif
+    if (*err == cudaSuccess
+        && (found != cudaDriverEntryPointSuccess || p == nullptr))
+        *err = cudaErrorSymbolNotFound;
+    if (*err != cudaSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+    return fn;
+}
+
+// rank 2: (rows, n) at row stride ld, box 32 x box_rows; rank 3: (4, n, n)
+// at row stride ld, box 32 x box_rows x 2. Float32, the 128-byte swizzle,
+// zeros outside the bounds.
+CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rank,
+                int n, int rows, int ld, int box_rows) {
+    const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)rows, 4};
+    const cuuint64_t strides[2] = {(cuuint64_t)ld * 4,
+                                   (cuuint64_t)ld * 4 * (cuuint64_t)rows};
+    const cuuint32_t box[3] = {(cuuint32_t)kBK, (cuuint32_t)box_rows, 2};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank,
+              const_cast<void*>(base), dims, strides, box, unit,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace
 
-// Floats of scratch a solve of `chains` x `rows` rows of length n needs.
+// Floats of scratch a solve of `chains` x `rows` rows of length n needs:
+// five vectors at row stride ld = n rounded up to 4, the partial sums and
+// the per-row and per-chain scalars.
 extern "C" long long icar_cg_scratch_floats(int chains, int rows, int n) {
     const size_t M = (size_t)chains * rows;
+    const size_t ld = ((size_t)n + 3) / 4 * 4;
     const size_t tn = tiles_of(n, kBN);
-    return (long long)(4 * round4(M * n) + 3 * round4(M * tn)
-                       + 2 * round4(M) + round4(chains));
+    const size_t parts = (M * tn + 3) / 4 * 4;
+    const size_t per_row = (M + 3) / 4 * 4;
+    return (long long)(5 * M * ld + 3 * parts + 2 * per_row
+                       + ((size_t)chains + 3) / 4 * 4);
 }
 
-// Returns a CUDA error code (0 on success). All pointers are device
-// pointers, to contiguous float32 but for `launches`, one uint64 the
-// launch adds 1 to; `scratch` holds icar_cg_scratch_floats floats and is
-// 16-byte aligned. chains * rows * n must stay below 2^31.
-extern "C" int icar_cg_launch(const void* U, const void* S, const void* rhs,
-                              const void* x0, const void* omega,
-                              const void* tau, void* x_site, void* x_spec,
-                              void* rel, void* scratch, void* launches,
-                              int chains, int rows, int n, int iters,
-                              void* stream) {
+// Returns a CUDA error code (0 on success), or kEncodeError + a CUresult
+// when a tensor map cannot be encoded. All pointers are device pointers,
+// to contiguous float32 but for `launches`, one uint64 the launch adds 1
+// to, and all are 16-byte aligned. With ld = n rounded up to 4, rhs, x0,
+// x_site and x_spec are (chains * rows, ld), omega (chains, ld), S (ld),
+// operands (4, n, ld) from k3_operands and `scratch`
+// icar_cg_scratch_floats floats; only the first n of each ld are read.
+// chains * rows * n must stay below 2^31.
+extern "C" int icar_cg_launch(const void* operands, const void* S,
+                              const void* rhs, const void* x0,
+                              const void* omega, const void* tau,
+                              void* x_site, void* x_spec, void* rel,
+                              void* scratch, void* launches, int chains,
+                              int rows, int n, int iters, void* stream) {
     if (chains == 0 || rows == 0 || n == 0) return 0;
     if (chains < 0 || rows < 0 || n < 0 || iters < 0
         || (long long)chains * rows * n >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
+    const uintptr_t bits = (uintptr_t)operands | (uintptr_t)S
+                           | (uintptr_t)rhs | (uintptr_t)x0
+                           | (uintptr_t)omega | (uintptr_t)x_site
+                           | (uintptr_t)x_spec | (uintptr_t)scratch;
+    if (bits % 16 != 0) return (int)cudaErrorMisalignedAddress;
+    cudaError_t err = cudaSuccess;
+    EncodeTiled fn = encode_fn(&err);
+    if (fn == nullptr) return (int)err;
     Params P;
-    P.U = (const float*)U;
     P.S = (const float*)S;
-    P.rhs = (const float*)rhs;
     P.x0 = (const float*)x0;
     P.omega = (const float*)omega;
     P.tau = (const float*)tau;
@@ -723,34 +949,57 @@ extern "C" int icar_cg_launch(const void* U, const void* S, const void* rhs,
     P.chains = chains;
     P.rows = rows;
     P.n = n;
+    P.ld = (n + 3) / 4 * 4;
     P.iters = iters;
     P.M = chains * rows;
     P.tiles_m = tiles_of(P.M, kBM);
     P.tiles_n = tiles_of(n, kBN);
-    const size_t vec = round4((size_t)P.M * n);
-    const size_t parts = round4((size_t)P.M * P.tiles_n);
+    const size_t vec = (size_t)P.M * P.ld;
+    const size_t parts = ((size_t)P.M * P.tiles_n + 3) / 4 * 4;
+    const size_t per_row = ((size_t)P.M + 3) / 4 * 4;
     float* s = (float*)scratch;
     P.r = s;
     P.p = s + vec;
     P.ap = s + 2 * vec;
     P.w = s + 3 * vec;
-    s += 4 * vec;
+    P.xs = s + 4 * vec;
+    s += 5 * vec;
     P.part_bb = s;
     P.part_rz = s + parts;
     P.part_pap = s + 2 * parts;
     s += 3 * parts;
     P.rz = s;
-    P.ratio = s + round4(P.M);
-    P.cbar = s + 2 * round4(P.M);
-    const uintptr_t bits = (uintptr_t)U | (uintptr_t)S | (uintptr_t)rhs
-                           | (uintptr_t)x0 | (uintptr_t)omega
-                           | (uintptr_t)x_site | (uintptr_t)x_spec
-                           | (uintptr_t)scratch;
-    const bool vec16 = n % 4 == 0 && bits % 16 == 0;
-    cudaStream_t st = (cudaStream_t)stream;
-    return vec16 ? launch<true>(P, st) : launch<false>(P, st);
+    P.ratio = s + per_row;
+    P.cbar = s + 2 * per_row;
+    const struct {
+        CUtensorMap* map;
+        const void* base;
+    } vectors[] = {{&P.map_rhs, rhs}, {&P.map_x0, x0},  {&P.map_p, P.p},
+                   {&P.map_w, P.w},   {&P.map_x, P.xs}};
+    for (const auto& v : vectors) {
+        const CUresult res = encode(fn, v.map, v.base, 2, n, P.M, P.ld, kBM);
+        if (res != CUDA_SUCCESS) return kEncodeError + (int)res;
+    }
+    const CUresult res = encode(fn, &P.map_u, operands, 3, n, n, P.ld, kBN);
+    if (res != CUDA_SUCCESS) return kEncodeError + (int)res;
+    const int limit = max_grid(&err);
+    if (err != cudaSuccess) return (int)err;
+    // the start phase has the most jobs: two products' tiles
+    const long long jobs = 2LL * P.tiles_m * P.tiles_n;
+    const int grid = (int)(jobs < limit ? jobs : limit);
+    void* args[] = {&P};
+    return (int)cudaLaunchCooperativeKernel(
+        (void*)icar_cg_kernel, dim3(grid), dim3(kThreads), args, kSmemBytes,
+        (cudaStream_t)stream);
 }
 
 extern "C" const char* icar_cg_error_string(int err) {
+    if (err >= kEncodeError) {
+        static char text[96];
+        snprintf(text, sizeof text,
+                 "cuTensorMapEncodeTiled failed with CUresult %d",
+                 err - kEncodeError);
+        return text;
+    }
     return cudaGetErrorString((cudaError_t)err);
 }

@@ -27,7 +27,7 @@ from .. import rng
 from .._device import resolve_dtype
 from ..ops import icar
 from ..ops.cg import icar_cg_solve_spectral
-from ..ops.cuda_cg import icar_cg_solve_cuda
+from ..ops.cuda_cg import icar_cg_solve_cuda, k3_operands
 from ..ops.cuda_pg import pg_devroye_cuda
 from ..ops.mvnorm import (
     lambda_cholesky_solve,
@@ -162,6 +162,11 @@ class LogitICARGibbs(GibbsBase):
         for key in ('q_eigvecs', 'gr_defl_vecs', 'gr_defl_vecs_p'):
             if key in self.fixed:
                 self.fixed[key] = self.fixed[key].to(self.eig_dtype)
+        if (self.solver == 'cg' and self.cg_impl == 'pallas'
+                and self.device.type == 'cuda'):
+            # K3's K-major eigenbases, split once here rather than at
+            # every solve; the whole field's, also on a 2-D band
+            self.fixed['k3_operands'] = k3_operands(self.fixed['q_eigvecs'])
         if pg_method is None:
             pg_method = (
                 'pallas_packed' if self.device.type == 'cuda' else 'devroye'
@@ -268,15 +273,17 @@ class LogitICARGibbs(GibbsBase):
             return out, out
         sites = self._sites
         if self.solver == 'cg':
-            solve = (
-                icar_cg_solve_cuda if self.cg_impl == 'pallas'
-                else icar_cg_solve_spectral
-            )
             rhs, warm, omega = sites.gather(rhs, warm, omega, label='field')
-            out = solve(
-                rhs, warm, omega, tau, fixed['q_eigvecs'],
-                fixed['q_eigvals'], self.cg_iters, return_resid=return_resid,
-            )
+            args = (rhs, warm, omega, tau, fixed['q_eigvecs'],
+                    fixed['q_eigvals'], self.cg_iters)
+            if self.cg_impl == 'pallas':
+                out = icar_cg_solve_cuda(
+                    *args, return_resid=return_resid,
+                    operands=fixed.get('k3_operands'),
+                )
+            else:
+                out = icar_cg_solve_spectral(*args,
+                                             return_resid=return_resid)
             return (sites.band(out[0]), sites.band(out[1])) + out[2:]
         rhs, omega = sites.gather(rhs, omega, label='field')
         sol = sites.band(lambda_cholesky_solve(rhs, omega, tau, fixed['Q']))

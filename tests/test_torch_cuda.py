@@ -24,7 +24,7 @@ from occuspytial_tpu_torch import (
 from occuspytial_tpu_torch.models.base import GibbsBase
 from occuspytial_tpu_torch.ops import cg as tcg
 from occuspytial_tpu_torch.ops import polyagamma as tpg
-from occuspytial_tpu_torch.ops.cuda_cg import icar_cg_solve_cuda
+from occuspytial_tpu_torch.ops.cuda_cg import icar_cg_solve_cuda, k3_operands
 from occuspytial_tpu_torch.ops.cuda_pg import pg_devroye_cuda
 from occuspytial_tpu_torch.ops.icar import icar_spectral, lattice_precision
 from occuspytial_tpu_torch.utils import make_data
@@ -142,9 +142,10 @@ def _cg_args(dev, chains, rows, n, seed=0):
 @pytest.mark.parametrize('rows', [2, 6, 8])
 @pytest.mark.parametrize('chains', [1, 3, 64, 200])
 def test_cg_kernel_shapes_off_the_tile_grid(dev, chains, rows, n):
-    """Chain and row counts on and off the 48-row tiles, n off the
-    64-column tiles (200) and not a multiple of 4 (333, staged by 4-byte
-    copies): the kernel agrees with the plain solve as at the main
+    """Chain and row counts on and off the 64-row tiles, n off the
+    48-column tiles (200) and not a multiple of 4 (333, through operands
+    and vectors padded to a row stride of 336): the kernel agrees with
+    the plain solve as at the main
     shape, converged and, cut short after 1 and 2 iterations from a zero
     start, on residuals that are far from rounding (above 1e-4, where a
     converged one reads 1e-7) and are held to 1e-3 of themselves."""
@@ -178,8 +179,9 @@ def test_cg_kernel_iteration_counts(dev, iters):
 
 
 def test_cg_kernel_takes_tensors_off_16_byte_alignment(dev):
-    """Views that start 4 bytes into their storage are staged by 4-byte
-    copies, with the same bits as the aligned 16-byte path."""
+    """Views that start 4 bytes into their storage (which TMA cannot
+    read) are copied to aligned buffers first, with the same bits as the
+    aligned path."""
     args = _cg_args(dev, 5, 6, 200)
     want = icar_cg_solve_cuda(*args, return_resid=True)
     shifted = []
@@ -226,6 +228,71 @@ def test_cg_kernel_chain_independence(dev, rows, n):
         assert torch.equal(f[keep], w)
         assert torch.equal(f[keep], x[keep])
     assert not torch.equal(full[0][:5], mixed[0][:5])
+
+
+def test_cg_kernel_at_the_main_path_shapes(dev):
+    """64 chains x 6 rows x n = 1000, 8 iterations, as the headline
+    problem's sampler calls it (operands prepared once), against the
+    plain solve."""
+    args = _cg_args(dev, 64, 6, 1000)
+    ops = k3_operands(args[4])
+    before = icar_cg_solve_cuda.counter.launches
+    got = icar_cg_solve_cuda(*args, return_resid=True, operands=ops)
+    torch.cuda.synchronize()
+    assert icar_cg_solve_cuda.counter.launches == before + 1
+    want = tcg.icar_cg_solve_spectral(*args, return_resid=True)
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert float(((got[2] - want[2]).abs()
+                  / (want[2].abs() + 1e-3)).max()) <= 1e-3
+
+
+@pytest.mark.parametrize('n', [200, 333, 1000])
+def test_cg_kernel_operands_given_or_made(dev, n):
+    """The operands prepared once (k3_operands: U and U' K-major, head and
+    remainder, rows padded to a multiple of 4) give the bits of a call
+    that prepares its own; the wrapper refuses operands of another
+    shape."""
+    args = _cg_args(dev, 3, 6, n)
+    ops = k3_operands(args[4])
+    assert ops.shape == (4, n, (n + 3) // 4 * 4)
+    made = icar_cg_solve_cuda(*args, return_resid=True)
+    given = icar_cg_solve_cuda(*args, return_resid=True, operands=ops)
+    for a, b in zip(made, given):
+        assert torch.equal(a, b)
+        assert a.is_contiguous()
+    assert made[0].shape == (3, 6, n)
+    with pytest.raises(ValueError, match='operands'):
+        icar_cg_solve_cuda(*args, operands=ops[:2])
+
+
+@pytest.mark.parametrize('n', [333, 1000])
+def test_cg_kernel_replays_in_a_cuda_graph(dev, n):
+    """A launch captured in a CUDA graph (its tensor maps baked into the
+    node, its scratch from the graph's pool) replays to the bits of an
+    eager launch, on new inputs copied into the captured buffers, and
+    counts once a replay."""
+    args = _cg_args(dev, 8, 6, n)
+    ops = k3_operands(args[4])
+    static = [a.clone() for a in args[:4]]
+    icar_cg_solve_cuda(*static, *args[4:], return_resid=True, operands=ops)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = icar_cg_solve_cuda(*static, *args[4:], return_resid=True,
+                                 operands=ops)
+    for seed in (1, 2):
+        fresh = _cg_args(dev, 8, 6, n, seed=seed)
+        for buf, new in zip(static, fresh[:4]):
+            buf.copy_(new)
+        before = icar_cg_solve_cuda.counter.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert icar_cg_solve_cuda.counter.launches == before + 1
+        want = icar_cg_solve_cuda(*fresh[:4], *args[4:], return_resid=True,
+                                  operands=ops)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
 
 
 def test_cg_kernel_wrapper_raises_on_what_it_does_not_take(dev):
