@@ -21,9 +21,11 @@ the host loop on every one-process path and in the ranks of an NCCL 2-D
 run (whose captured band step holds its all-reduces), with a tracked
 2-D run that keeps one chunk of draws on the card, and prints one
 JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
-{...}}``. Any failed check raises, so the script exits non-zero without
-that line; it also fails without CUDA. ``--stop-after N`` ends
-after phase N (a quick build-and-check run).
+{...}}``. After the build (phase 2), phase 2b holds the phase-span
+marker kernel against its plain arithmetic. Any failed check raises,
+so the script exits non-zero without that line; it also fails without
+CUDA. ``--stop-after N`` ends after phase N (a quick build-and-check
+run).
 """
 
 import argparse
@@ -1127,6 +1129,7 @@ def graph_phase(dev, card, paths, lattice):
         counted = [c.launches / GRAPH_PROFILE_STEPS for c in KERNEL_COUNTERS]
         kernels = [e.name for e in prof.events()
                    if e.device_type.name == 'CUDA'
+                   and not e.is_user_annotation
                    and not e.name.startswith(('Memcpy', 'Memset'))]
         per = len(kernels) / GRAPH_PROFILE_STEPS
         seen = [sum(tag in n for n in kernels) / GRAPH_PROFILE_STEPS
@@ -1390,6 +1393,113 @@ def large_n_phases(dev, kind, card, counters):
     return launches, paths
 
 
+def span_marks_phase(dev):
+    """Phase 2b: the phase-span marker kernel (``csrc/span_mark.cu``)
+    against its plain arithmetic (``tracing._apply``). One fixed mark
+    sequence runs through the card's accumulator and, on a counting
+    clock, through a host one: three eager steps with nested phases and a
+    mark that closes one phase and opens the next (a run's first step, a
+    second step of the run, a new run's first step), then a captured
+    step, its marks read back from ``tracing.captured_marks``, replayed
+    in two runs of 3 and 2 replays from a slot counter set to 0 (so the
+    kernel reads the slot at 0 and above 0). Every phase count and the
+    launch-gap and block-boundary counts must match the host's exactly
+    and the hand count (4 gaps, 3 boundaries); every sum, self time and
+    counter sum must be >= 0."""
+    import torch
+
+    from occuspytial_tpu_torch import tracing
+
+    t0 = phase('2b phase-span marker kernel against its plain arithmetic')
+    tb = time.perf_counter()
+    tracing.enable()
+    print(f'    enable (marker kernel built and loaded): '
+          f'{time.perf_counter() - tb:.2f} s')
+    try:
+        tracing.report(reset=True)
+        acc = tracing._TRACER.accumulator(dev)
+        host = [0] * tracing._SIZE
+        tick = [0]
+
+        def host_mark(close, open_, first):
+            tick[0] += 1
+            tracing._apply(host, tick[0], close, open_, first)
+
+        def both(close, open_, first=False):
+            acc.mark(close, open_, first)
+            host_mark(close, open_, first)
+
+        draws, pg, beta_eta, eta_solve = (
+            tracing.PHASES.index(n)
+            for n in ('draws', 'pg', 'beta_eta', 'eta_solve'))
+        for first in (True, False, True):
+            both(-1, 0, first)
+            both(-1, draws)
+            both(draws, pg)
+            both(pg, -1)
+            for _ in range(2):
+                both(-1, beta_eta)
+                both(-1, eta_solve)
+                both(eta_solve, -1)
+                both(beta_eta, -1)
+            both(0, -1)
+
+        slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        known = len(tracing.captured_marks(dev))
+        with torch.cuda.graph(graph, stream=side):
+            acc.mark(-1, 0, slot)
+            acc.mark(-1, draws)
+            acc.mark(draws, -1)
+            slot += 1
+            acc.mark(0, -1)
+        seq = tracing.captured_marks(dev)[known:]
+        check(seq == [(-1, 0), (-1, draws), (draws, -1), (0, -1)],
+              f'captured marks {seq}')
+        for replays in (3, 2):
+            slot.zero_()
+            for k in range(replays):
+                graph.replay()
+                for close, open_ in seq:
+                    host_mark(close, open_, k == 0)
+        torch.cuda.synchronize(dev)
+        check(int(slot.item()) == 2, f'slot counter {int(slot.item())}')
+
+        card = acc.read()
+        P, C = tracing._P, tracing._COUNT
+        counts = {n: card[C + i] for i, n in enumerate(tracing.PHASES)
+                  if card[C + i]}
+        print(f'    counts {counts}, gaps {card[tracing._GAP_N]}, '
+              f'boundaries {card[tracing._BOUNDARY_N]}')
+        check(card[C:C + P] == host[C:C + P],
+              f'phase counts {card[C:C + P]} != host {host[C:C + P]}')
+        check(counts == {'step': 8, 'draws': 8, 'pg': 3, 'beta_eta': 6,
+                         'eta_solve': 6}, f'phase counts {counts}')
+        for at, want in ((tracing._GAP_N, 4), (tracing._BOUNDARY_N, 3)):
+            check(card[at] == host[at] == want,
+                  f'counter {at}: card {card[at]}, host {host[at]}, '
+                  f'expected {want}')
+        rep = tracing.report(reset=True)
+        for name, v in rep['spans'].items():
+            check(v['sum_s'] >= 0 and v['self_s'] >= 0,
+                  f'{name}: sum {v["sum_s"]} self {v["self_s"]}')
+        for name in ('launch_gap', 'block_boundary'):
+            check(rep[name]['sum_s'] >= 0, f'{name} {rep[name]}')
+        check(rep['last_stamp_s'] >= rep['first_stamp_s'], 'stamps')
+        print('    ' + json.dumps({
+            'us': {n: round(1e6 * v['sum_s'], 3)
+                   for n, v in rep['spans'].items()},
+            'self_us': {n: round(1e6 * v['self_s'], 3)
+                        for n, v in rep['spans'].items()},
+            'gap_us': round(1e6 * rep['launch_gap']['sum_s'], 3),
+            'boundary_us': round(1e6 * rep['block_boundary']['sum_s'], 3)}))
+    finally:
+        tracing.disable()
+    done(t0)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--stop-after', type=int, default=19)
@@ -1428,6 +1538,7 @@ def main():
             if 'registers' in line or 'spill' in line or 'error' in line:
                 print('      ' + line.strip())
     done(t0)
+    span_marks_phase(dev)
     if args.stop_after < 3:
         return
 

@@ -29,6 +29,11 @@ FLAGS = (
 _LIBS = {}
 
 
+#: kernels that :func:`build` compiles only when named: the phase-span
+#: marker, built at ``tracing.enable()``'s first call on CUDA
+ON_REQUEST = ('span_mark',)
+
+
 def sources():
     """Kernel names (source file stems) in ``csrc/``."""
     return sorted(p.stem for p in SOURCE_DIR.glob('*.cu'))
@@ -56,13 +61,17 @@ def _target(name):
 
 
 def build(names=None):
-    """Compile the named kernels (default: all) that are not built yet.
+    """Compile the named kernels (default: every one in ``csrc/`` but
+    those of :data:`ON_REQUEST`) that are not built yet.
 
     Returns name -> (seconds, compiler log) for each kernel compiled now;
     the log holds ``ptxas -v``'s registers and shared memory per kernel.
     Raises with the compiler's output when a build fails.
     """
-    names = sources() if names is None else list(names)
+    if names is None:
+        names = [n for n in sources() if n not in ON_REQUEST]
+    else:
+        names = list(names)
     todo = [n for n in names if not _target(n).exists()]
     if not todo:
         return {}

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import rng
+from .. import rng, tracing
 from .._device import resolve_device, resolve_dtype
 from ..data import as_occupancy_data
 from ..ops import icar
@@ -157,6 +157,10 @@ class _StepGraph:
     every rank of the group warms up and captures the same step in the
     same order.
 
+    With tracing on (:mod:`..tracing`), the captured step holds the marks
+    of its phases, ``step`` around the sampler's step and ``store``; the
+    slot counter tells the ``step`` mark whether it is its run's first.
+
     Kernel launch counts (:data:`KERNEL_COUNTERS`) are the kernels' own,
     on the card: the warm-up's launches count, the capture launches
     nothing, and each replay counts what it runs. ``per_replay`` holds
@@ -186,18 +190,24 @@ class _StepGraph:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(sampler._graph_warmup_steps):
-                sampler._step(
-                    self.keys.clone(), self.step.clone(),
-                    {k: v.clone() for k, v in self.states.items()},
-                    self.fixed,
-                )
+                # marked too: a first mark makes the tracing accumulator,
+                # which a capture cannot
+                with tracing.phase('step', dev, first=True):
+                    sampler._step(
+                        self.keys.clone(), self.step.clone(),
+                        {k: v.clone() for k, v in self.states.items()},
+                        self.fixed,
+                    )
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [c.recorded for c in KERNEL_COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, stream=side):
-            self._store(sampler._step(self.keys, self.step, self.states,
-                                      self.fixed))
+        with torch.cuda.graph(self.graph, stream=side), \
+                tracing.phase('step', dev, first=self.slot):
+            new = sampler._step(self.keys, self.step, self.states,
+                                self.fixed)
+            with tracing.phase('store'):
+                self._store(new)
         self.capture_seconds = time.perf_counter() - t0
         self.per_replay = [c.recorded - b
                            for c, b in zip(KERNEL_COUNTERS, before)]
@@ -257,26 +267,30 @@ class _StepGraph:
         if size > self.length:
             raise ValueError(f'{size} steps exceed the graph\'s buffers '
                              f'({self.length})')
-        self.keys.copy_(carry.keys)
-        for k, v in carry.states.items():
-            self.states[k].copy_(v)
-        self.step.fill_(carry.step)
-        self.slot.zero_()
-        if clock is not None:
-            clock.start()
-        for _ in range(size):
-            self.graph.replay()
+        with tracing.span('sample.carry'):
+            self.keys.copy_(carry.keys)
+            for k, v in carry.states.items():
+                self.states[k].copy_(v)
+            self.step.fill_(carry.step)
+            self.slot.zero_()
+        with tracing.span('sample.replay'):
             if clock is not None:
-                clock.mark()
-        if clock is not None:
-            clock.stop()
+                clock.start()
+            for _ in range(size):
+                self.graph.replay()
+                if clock is not None:
+                    clock.mark()
+            if clock is not None:
+                clock.stop()
         self.replays += size
-        out = {n: self.out[n][:size] for n in self.names}
-        for n in self.names:
-            if n not in self.track:
-                out[n] = out[n].clone()
-        states = {k: v.clone() for k, v in self.states.items()}
-        return Carry(self.keys.clone(), states, carry.step + size), out
+        with tracing.span('sample.carry'):
+            out = {n: self.out[n][:size] for n in self.names}
+            for n in self.names:
+                if n not in self.track:
+                    out[n] = out[n].clone()
+            states = {k: v.clone() for k, v in self.states.items()}
+            keys = self.keys.clone()
+        return Carry(keys, states, carry.step + size), out
 
 
 class GibbsBase:
@@ -654,16 +668,19 @@ class GibbsBase:
             )
             for name in names
         }
-        if clock is not None:
-            clock.start()
-        for t in range(size):
-            states = self._step(keys, step + t, states, self.fixed)
-            for name in names:
-                out[name][t].copy_(states[name])
+        with tracing.span('sample.replay'):
             if clock is not None:
-                clock.mark()
-        if clock is not None:
-            clock.stop()
+                clock.start()
+            for t in range(size):
+                with tracing.phase('step', self.device, first=t == 0):
+                    states = self._step(keys, step + t, states, self.fixed)
+                    with tracing.phase('store'):
+                        for name in names:
+                            out[name][t].copy_(states[name])
+                if clock is not None:
+                    clock.mark()
+            if clock is not None:
+                clock.stop()
         return Carry(keys, states, step + size), out
 
     def _runs_eagerly(self):
@@ -715,14 +732,15 @@ class GibbsBase:
 
     def _graph_signature(self, carry):
         """What a captured step depends on beyond (chains, ``track``):
-        the attributes of :attr:`_STEP_SETTINGS`, the fixed tensors and
-        the carry's state layout. A graph whose signature differs
+        the attributes of :attr:`_STEP_SETTINGS`, the fixed tensors, the
+        carry's state layout and whether tracing is on (a step captured
+        with it holds its phase marks). A graph whose signature differs
         (:func:`_same_signature`) is captured anew."""
         settings = tuple(getattr(self, k, None) for k in self._STEP_SETTINGS)
         fixed = tuple(self.fixed.items())
         layout = tuple((k, tuple(v.shape), v.dtype)
                        for k, v in carry.states.items())
-        return settings, fixed, layout
+        return settings, fixed, layout, tracing.enabled()
 
     def _graph_runner(self, carry, length):
         """The cached :class:`_StepGraph` for ``carry``'s chain count and
@@ -740,7 +758,8 @@ class GibbsBase:
                                        self._graph_signature(carry))):
             cache.pop(key, None)
             names = tuple(self.posterior_names) + tuple(self.track)
-            runner = _StepGraph(self, carry, names, length)
+            with tracing.span('sample.capture'):
+                runner = _StepGraph(self, carry, names, length)
             cache[key] = runner
         return runner
 
@@ -822,7 +841,9 @@ class GibbsBase:
     @staticmethod
     def _chunk_to_host(out, track):
         """One chunk's draws with its ``track``-ed entries on the host."""
-        return {k: (v.cpu() if k in track else v) for k, v in out.items()}
+        with tracing.span('sample.to_host'):
+            return {k: (v.cpu() if k in track else v)
+                    for k, v in out.items()}
 
     def _progress_bars(self, progressbar, size, chains):
         if not progressbar:
@@ -864,23 +885,27 @@ class GibbsBase:
             raise ValueError('chains must a positive integer.')
         if type(self)._step is GibbsBase._step:
             self._step(None, 0, None, None)
-        carry = (
-            resume_from if resume_from is not None
-            else self.init_carry(chains, start)
-        )
-        bars = self._progress_bars(progressbar, size, carry.keys.shape[0])
-        try:
-            carry, out = self._run(carry, size, bars)
-        finally:
-            for bar in bars:
-                bar.close()
-        self.final_carry = carry
-        self._check_run_solver_health(carry)
-        merged = {
-            name: np.moveaxis(val.cpu().numpy(), 0, 1)[:, burnin:]
-            for name, val in out.items()
-        }
-        return PosteriorParameter(merged)
+        with tracing.span('sample'):
+            carry = (
+                resume_from if resume_from is not None
+                else self.init_carry(chains, start)
+            )
+            bars = self._progress_bars(progressbar, size,
+                                       carry.keys.shape[0])
+            try:
+                carry, out = self._run(carry, size, bars)
+            finally:
+                for bar in bars:
+                    bar.close()
+            self.final_carry = carry
+            with tracing.span('sample.health'):
+                self._check_run_solver_health(carry)
+            with tracing.span('sample.to_host'):
+                merged = {
+                    name: np.moveaxis(val.cpu().numpy(), 0, 1)[:, burnin:]
+                    for name, val in out.items()
+                }
+            return PosteriorParameter(merged)
 
     def sample_until(
         self, rhat_tol=1.01, min_ess=400.0, chains=4, check_every=512,

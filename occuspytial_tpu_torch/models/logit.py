@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import rng
+from .. import rng, tracing
 from .._device import resolve_dtype
 from ..ops import icar
 from ..ops.cg import icar_cg_solve_spectral
@@ -434,9 +434,10 @@ class LogitICARGibbs(GibbsBase):
         warm = state.get('eta_warm')
         if warm is None:
             warm = torch.zeros_like(rhs)
-        sol, warm_next, rel = self._lambda_solve(
-            rhs, warm, omega_b, tau, fixed, return_resid=True
-        )
+        with tracing.phase('eta_solve'):
+            sol, warm_next, rel = self._lambda_solve(
+                rhs, warm, omega_b, tau, fixed, return_resid=True
+            )
         self._track_resid(state, rel)
         g, gk, h, gp = sol[:, :p], sol[:, p], sol[:, p + 1], sol[:, p + 2]
         sites = self._sites
@@ -494,9 +495,10 @@ class LogitICARGibbs(GibbsBase):
         warm = state.get('eta_warm')
         if warm is None:
             warm = torch.zeros_like(rhs)
-        sol, warm_next, rel = self._lambda_solve(
-            rhs, warm, omega_b, tau, fixed, return_resid=True
-        )
+        with tracing.phase('eta_solve'):
+            sol, warm_next, rel = self._lambda_solve(
+                rhs, warm, omega_b, tau, fixed, return_resid=True
+            )
         if 'eta_warm' in state:
             state['eta_warm'] = warm_next
         self._track_resid(state, rel)
@@ -547,57 +549,64 @@ class LogitICARGibbs(GibbsBase):
     def _step(self, keys, step, state, fixed):
         """One Gibbs iteration for all chains (the JAX ``_step``: both
         PG fields in one draw, ``spatial_sweeps`` x (tau, beta/eta, ASIS),
-        then alpha and z)."""
-        w = self._plan(keys, step)
+        then alpha and z), marked in the phases of :mod:`..tracing`."""
+        with tracing.phase('draws'):
+            w = self._plan(keys, step)
         dt = self.dtype
         s = dict(state)
-        lin_b = lincomb(s['beta'], fixed['X'].T) + s['spatial']
-        lin_a = lincomb(s['alpha'], fixed['W_flat'].T)
-        omega = self._pg(w[0], torch.cat([lin_b, lin_a], dim=-1))
-        omega_b, omega_a = omega[:, :self.n], omega[:, self.n:]
+        with tracing.phase('pg'):
+            lin_b = lincomb(s['beta'], fixed['X'].T) + s['spatial']
+            lin_a = lincomb(s['alpha'], fixed['W_flat'].T)
+            omega = self._pg(w[0], torch.cat([lin_b, lin_a], dim=-1))
+            omega_b, omega_a = omega[:, :self.n], omega[:, self.n:]
 
         for i in range(self.spatial_sweeps):
             base = 1 + _SWEEP_UPDATES * i
-            tau = self._update_tau(
-                s['eta'], fixed,
-                rng.gamma(fixed['tau_shape'], w[base + _TAU], dt),
-            )
-            eps1 = rng.normal(w[base + _EPS1], dt)
-            eps_noise = rng.normal(w[base + _NOISE], dt)
-            if self.blocked and self._solves_lambda:
-                beta, eta = self._update_beta_eta_blocked(
-                    s, omega_b, tau, fixed, rng.normal(w[base + _BETA], dt),
-                    eps1, eps_noise,
+            with tracing.phase('tau'):
+                tau = self._update_tau(
+                    s['eta'], fixed,
+                    rng.gamma(fixed['tau_shape'], w[base + _TAU], dt),
                 )
-                s['tau'], s['eta'], s['spatial'] = tau, eta, eta
-                s['beta'] = beta
-            else:
-                eta, spatial = self._update_eta(
-                    s, omega_b, tau, fixed, eps1, eps_noise
-                )
-                s['tau'], s['eta'], s['spatial'] = tau, eta, spatial
-                s['beta'] = self._update_beta(
-                    s, omega_b, spatial, fixed,
-                    rng.normal(w[base + _BETA], dt),
-                )
+            with tracing.phase('beta_eta'):
+                eps1 = rng.normal(w[base + _EPS1], dt)
+                eps_noise = rng.normal(w[base + _NOISE], dt)
+                if self.blocked and self._solves_lambda:
+                    beta, eta = self._update_beta_eta_blocked(
+                        s, omega_b, tau, fixed,
+                        rng.normal(w[base + _BETA], dt), eps1, eps_noise,
+                    )
+                    s['tau'], s['eta'], s['spatial'] = tau, eta, eta
+                    s['beta'] = beta
+                else:
+                    eta, spatial = self._update_eta(
+                        s, omega_b, tau, fixed, eps1, eps_noise
+                    )
+                    s['tau'], s['eta'], s['spatial'] = tau, eta, spatial
+                    s['beta'] = self._update_beta(
+                        s, omega_b, spatial, fixed,
+                        rng.normal(w[base + _BETA], dt),
+                    )
             if self.asis:
-                s = self._asis_tau(
-                    s, omega_b, fixed,
-                    noise_from_words(
-                        w[base + _ASIS], self.asis_method,
-                        self.asis_steps, dt,
-                    ),
-                )
+                with tracing.phase('asis'):
+                    s = self._asis_tau(
+                        s, omega_b, fixed,
+                        noise_from_words(
+                            w[base + _ASIS], self.asis_method,
+                            self.asis_steps, dt,
+                        ),
+                    )
 
-        s['alpha'] = self._update_alpha(
-            s, omega_a, fixed, rng.normal(w[self._alpha_update], dt)
-        )
+        with tracing.phase('alpha'):
+            s['alpha'] = self._update_alpha(
+                s, omega_a, fixed, rng.normal(w[self._alpha_update], dt)
+            )
         # z conditions on the post-ASIS spatial field (the move rescales
         # tau, eta and spatial jointly)
-        s['z'], s['k'] = self._update_z(
-            s, s['alpha'], s['beta'], s['spatial'], fixed,
-            rng.uniform(w[self._z_update], dt),
-        )
+        with tracing.phase('z'):
+            s['z'], s['k'] = self._update_z(
+                s, s['alpha'], s['beta'], s['spatial'], fixed,
+                rng.uniform(w[self._z_update], dt),
+            )
         return s
 
 
@@ -669,8 +678,9 @@ class LogitRSRGibbs(LogitICARGibbs):
         ``eps1`` (chains, n) and ``eps2`` (chains, q) standard normals."""
         xb = lincomb(state['beta'], fixed['X'].T)
         b = self._sites.contract(state['k'] - omega_b * xb, fixed['K'])
-        eta = rsr_mvnorm(
-            b, omega_b, tau, fixed['Q_rsr'], fixed['K'],
-            fixed['sqrt_factor'], eps1, eps2, sites=self._sites,
-        )
+        with tracing.phase('eta_solve'):
+            eta = rsr_mvnorm(
+                b, omega_b, tau, fixed['Q_rsr'], fixed['K'],
+                fixed['sqrt_factor'], eps1, eps2, sites=self._sites,
+            )
         return eta, eta @ fixed['K'].T

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch.special import log_ndtr
 
-from .. import rng
+from .. import rng, tracing
 from ..ops import icar
 from ..ops.mvnorm import (
     cholesky_solve,
@@ -319,63 +319,78 @@ class _ProbitBase(GibbsBase):
     # ----------------------------- transition ------------------------- #
 
     def _step(self, keys, step, state, fixed):
-        """One Gibbs iteration (the JAX ``_step``)."""
-        w = self._plan(keys, step)
+        """One Gibbs iteration (the JAX ``_step``), marked in the phases
+        of :mod:`..tracing`."""
+        with tracing.phase('draws'):
+            w = self._plan(keys, step)
         dt = self.dtype
         s = dict(state)
-        omega_b = self._update_omega_b(s, fixed, rng.uniform(w[_OMEGA_B], dt))
-        s['omega_b'] = omega_b
-        if self.px:
-            # the collapsed block integrates eps out of this window, so
-            # the move runs on the eps-marginal density
-            s = self._px_scale_move(
-                s, fixed, self._px_noise(w[_PX_FIRST], self.collapsed),
-                marginal=self.collapsed,
-            )
-            omega_b = s['omega_b']
-        for i in range(self.spatial_sweeps):
-            base = 2 + _SWEEP_UPDATES * i
-            s['tau'] = self._update_tau(
-                s['eta'], fixed,
-                rng.gamma(fixed['tau_shape'], w[base + _TAU], dt),
-            )
-            eps_beta = rng.normal(w[base + _BETA], dt)
-            eps_eta = rng.normal(w[base + _ETA], dt)
-            eps_eps = rng.normal(w[base + _EPS], dt)
-            if self.collapsed:
-                factor = self._collapsed_factor(s['tau'], fixed)
-                s['beta'] = self._update_beta_collapsed(
-                    s, omega_b, s['tau'], fixed, eps_beta, factor
-                )
-                s['eta'], s['spatial'] = self._update_eta_collapsed(
-                    s, omega_b, s['tau'], fixed, eps_eta, factor
-                )
-                s['eps'] = self._update_eps(s, omega_b, fixed, eps_eps)
-            else:
-                s['eps'] = self._update_eps(s, omega_b, fixed, eps_eps)
-                s['eta'], s['spatial'] = self._update_eta(
-                    s, omega_b, s['tau'], fixed, eps_eta
-                )
-                s['beta'] = self._update_beta(s, omega_b, fixed, eps_beta)
+        with tracing.phase('latent'):
+            omega_b = self._update_omega_b(s, fixed,
+                                           rng.uniform(w[_OMEGA_B], dt))
+            s['omega_b'] = omega_b
             if self.px:
+                # the collapsed block integrates eps out of this window,
+                # so the move runs on the eps-marginal density
                 s = self._px_scale_move(
-                    s, fixed, self._px_noise(w[base + _PX], False)
+                    s, fixed, self._px_noise(w[_PX_FIRST], self.collapsed),
+                    marginal=self.collapsed,
                 )
                 omega_b = s['omega_b']
-            if self.asis:
-                s = self._asis_tau(
-                    s, fixed,
-                    noise_from_words(w[base + _ASIS], self.asis_method,
-                                     self.asis_steps, dt),
+        for i in range(self.spatial_sweeps):
+            base = 2 + _SWEEP_UPDATES * i
+            with tracing.phase('tau'):
+                s['tau'] = self._update_tau(
+                    s['eta'], fixed,
+                    rng.gamma(fixed['tau_shape'], w[base + _TAU], dt),
                 )
-        omega_a = self._update_omega_a(
-            s, fixed, rng.uniform(w[self._omega_a_update], dt)
-        )
-        s['alpha'] = self._update_alpha(
-            s, omega_a, fixed, rng.normal(w[self._alpha_update], dt)
-        )
-        s['z'] = self._update_z(s, fixed, rng.uniform(w[self._z_update], dt))
-        s['k'] = s['z'] - 0.5
+            with tracing.phase('beta_eta'):
+                eps_beta = rng.normal(w[base + _BETA], dt)
+                eps_eta = rng.normal(w[base + _ETA], dt)
+                eps_eps = rng.normal(w[base + _EPS], dt)
+                if self.collapsed:
+                    factor = self._collapsed_factor(s['tau'], fixed)
+                    s['beta'] = self._update_beta_collapsed(
+                        s, omega_b, s['tau'], fixed, eps_beta, factor
+                    )
+                    with tracing.phase('eta_solve'):
+                        s['eta'], s['spatial'] = self._update_eta_collapsed(
+                            s, omega_b, s['tau'], fixed, eps_eta, factor
+                        )
+                    s['eps'] = self._update_eps(s, omega_b, fixed, eps_eps)
+                else:
+                    s['eps'] = self._update_eps(s, omega_b, fixed, eps_eps)
+                    with tracing.phase('eta_solve'):
+                        s['eta'], s['spatial'] = self._update_eta(
+                            s, omega_b, s['tau'], fixed, eps_eta
+                        )
+                    s['beta'] = self._update_beta(s, omega_b, fixed,
+                                                  eps_beta)
+            if self.px:
+                with tracing.phase('latent'):
+                    s = self._px_scale_move(
+                        s, fixed, self._px_noise(w[base + _PX], False)
+                    )
+                    omega_b = s['omega_b']
+            if self.asis:
+                with tracing.phase('asis'):
+                    s = self._asis_tau(
+                        s, fixed,
+                        noise_from_words(w[base + _ASIS], self.asis_method,
+                                         self.asis_steps, dt),
+                    )
+        with tracing.phase('latent'):
+            omega_a = self._update_omega_a(
+                s, fixed, rng.uniform(w[self._omega_a_update], dt)
+            )
+        with tracing.phase('alpha'):
+            s['alpha'] = self._update_alpha(
+                s, omega_a, fixed, rng.normal(w[self._alpha_update], dt)
+            )
+        with tracing.phase('z'):
+            s['z'] = self._update_z(s, fixed,
+                                    rng.uniform(w[self._z_update], dt))
+            s['k'] = s['z'] - 0.5
         return s
 
 

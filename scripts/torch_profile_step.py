@@ -143,7 +143,10 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
-    kernels = [e for e in events if e.device_type.name == 'CUDA']
+    # the device's mirrors of host ranges (the runner's occuspytial.*
+    # spans) are annotations, not device work
+    kernels = [e for e in events if e.device_type.name == 'CUDA'
+               and not e.is_user_annotation]
     busy = busy_us([(e.time_range.start, e.time_range.end)
                     for e in kernels])
     launches = sum(1 for e in events if e.name in (

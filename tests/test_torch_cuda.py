@@ -20,6 +20,7 @@ from occuspytial_tpu_torch import (
     ProbitICARGibbs,
     ProbitRSRGibbs,
     rng,
+    tracing,
 )
 from occuspytial_tpu_torch.models.base import GibbsBase
 from occuspytial_tpu_torch.ops import cg as tcg
@@ -1030,3 +1031,104 @@ def test_2d_tracked_nccl_run_holds_one_chunk_on_the_card(dev):
             assert post['eta'].shape == (32, 1024, 10000)
             assert np.isfinite(post['eta'][:, -1]).all()
     assert peaks[('eta',)] <= peaks[()] + budget, peaks
+
+
+# ----------------------- the step's phase spans ------------------------- #
+
+@pytest.fixture
+def traced():
+    """Nothing accumulated before the test; tracing off after it."""
+    tracing.report(reset=True)
+    yield
+    tracing.disable()
+    tracing.report(reset=True)
+
+
+def _marks_run_by(fn):
+    """Marker kernels that ran on the card during ``fn()``, counted in a
+    profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if 'span_mark_kernel' in e.name)
+
+
+def test_a_step_captured_with_tracing_off_holds_no_mark(dev, traced):
+    """A graph captured with tracing off launches no marker kernel and
+    marks nothing; turned on, tracing recaptures the step with two marks
+    a phase (as ``captured_marks`` lists them, ``step`` first and last)
+    and the same K1/K3 launches a replay."""
+    s = _small_cg_sampler()
+    s.sample(8, chains=4, progressbar=False)
+    off = s._graph_runners[(4, ())]
+
+    def block():
+        s.sample(8, chains=4, progressbar=False, resume_from=s.final_carry)
+
+    assert _marks_run_by(block) == 0
+    assert tracing.report() == {}
+    known = len(tracing.captured_marks(dev))
+    tracing.enable()
+    block()
+    on = s._graph_runners[(4, ())]
+    assert on is not off
+    assert on.per_replay == off.per_replay == [1, 3]
+    # step, draws, pg, alpha, z and store; tau, beta_eta, eta_solve and
+    # asis a sweep
+    spans = 6 + 4 * s.spatial_sweeps
+    assert _marks_run_by(block) == 8 * 2 * spans
+    marks = tracing.captured_marks(dev)[known:]
+    assert len(marks) == 2 * spans
+    assert marks[0] == (-1, 0) and marks[-1] == (0, -1)
+
+
+def test_draws_are_bit_identical_with_tracing_on_and_off_on_the_card(
+        dev, traced):
+    runs = []
+    for on in (False, True):
+        (tracing.enable if on else tracing.disable)()
+        s = _small_cg_sampler()
+        s.scan_chunk = 5
+        post = s.sample(16, chains=4, progressbar=False)
+        runs.append((post, s.final_carry))
+    (post_off, carry_off), (post_on, carry_on) = runs
+    for name in ('alpha', 'beta', 'tau'):
+        np.testing.assert_array_equal(post_on[name], post_off[name])
+    for name, val in carry_off.states.items():
+        assert torch.equal(carry_on.states[name], val), name
+
+
+def test_phases_cover_the_step_and_the_stretch_on_the_card(dev, traced):
+    """At the headline's width (1000 sites, 64 chains, K3): the step's
+    child phases cover the step within 5% (the rest is the marks
+    between them), and the steps with the gaps between them cover the
+    stretch's wall time within 3%."""
+    import time
+
+    Q, W, X, y, *_ = make_lattice_dataset(40, 25, ns=500, seed=7)
+    s = LogitICARGibbs(Q, W, X, y, random_state=7, solver='cg',
+                       cg_impl='pallas')
+    tracing.enable()
+    s.sample(64, chains=64, progressbar=False)
+    tracing.report(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        s.sample(64, chains=64, progressbar=False,
+                 resume_from=s.final_carry)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = tracing.report()
+    spans = rep['spans']
+    step = spans['step']['sum_s']
+    children = sum(v['sum_s'] for v in spans.values()
+                   if v['parent'] == 'step')
+    assert 0.95 * step <= children <= step, (children, step)
+    assert spans['step']['count'] == 8 * 64
+    assert rep['launch_gap']['count'] == 8 * 63
+    assert rep['block_boundary']['count'] == 7
+    covered = (step + rep['launch_gap']['sum_s']
+               + rep['block_boundary']['sum_s'])
+    assert abs(covered - wall) <= 0.03 * wall, (covered, wall)
