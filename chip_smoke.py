@@ -22,8 +22,13 @@ run (whose captured band step holds its all-reduces), with a tracked
 2-D run that keeps one chunk of draws on the card, and prints one
 JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 {...}}``. After the build (phase 2), phase 2b holds the phase-span
-marker kernel against its plain arithmetic. Any failed check raises,
-so the script exits non-zero without that line; it also fails without
+marker kernel against its plain arithmetic; after the PG kernel (phase
+3), phase 3b holds the Threefry draw-plan kernel bit for bit against the
+torch-op plan at the headline problem's step plan and times both, and
+phase 10 does the same at the 10,000-site stencil sampler's. Every run
+of a sampler on the card checks the draw-plan kernel's launches (one a
+``DrawPlan`` call) beside K1's and K3's. Any failed check raises, so
+the script exits non-zero without that line; it also fails without
 CUDA. ``--stop-after N`` ends after phase N (a quick build-and-check
 run).
 """
@@ -107,6 +112,13 @@ PG_OPS_PER_ROUND = 2 * 70 + 60
 #: operations the mixture inputs cost a lane once: c, k_exp and the mass
 #: (about 12 transcendental calls, erfcx and erfc among them)
 PG_OPS_INPUTS = 120
+#: 32-bit integer operations of one H100 SXM (NVIDIA's Hopper tuning
+#: guide: 64 a clock on each of 132 SMs at the 1,980 MHz boost clock)
+PEAK_INT32 = 132 * 64 * 1.98e9
+#: integer operations one Threefry-2x32 evaluation costs: 20 rounds of
+#: add, rotate (one funnel shift) and xor, 5 key injections of 3, the
+#: first key add and the parity word
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 
 def make_lattice_dataset(rows, cols, ns, seed, p=3, qa=3, min_v=2,
                          max_v=10, neighbors=8):
@@ -237,6 +249,16 @@ def run_timed(sampler, size, burnin, chains, counters):
     return post, sec, [c.launches for c in counters]
 
 
+def init_plans(s):
+    """Draw-plan calls (:class:`rng.DrawPlan`, one launch each on the
+    card) of ``s.init_carry``: the common start's, the probit eps's and a
+    reduced basis's eta."""
+    from occuspytial_tpu_torch import ProbitICARGibbs, ProbitRSRGibbs
+
+    return (1 + isinstance(s, (ProbitICARGibbs, ProbitRSRGibbs))
+            + hasattr(s, 'q_dim'))
+
+
 def warmup_steps():
     """Eager steps a sampler runs on clones of its carry before it
     captures its step; their kernel launches count."""
@@ -318,8 +340,8 @@ def timed_rank(fn, reps, *args):
 
 def parallel_phase(dev, kind, card, counters, data, post_6, sec_6):
     """Phase 13: ``sample_parallel`` on the headline problem with
-    ``cg_impl='pallas'`` and phase 6's seed. Returns the K1 and K3
-    launches of the full-width two-worker run."""
+    ``cg_impl='pallas'`` and phase 6's seed. Returns the K1, K3 and
+    draw-plan launches of the full-width two-worker run."""
     import torch
 
     from occuspytial_tpu_torch import LogitICARGibbs
@@ -369,15 +391,18 @@ def parallel_phase(dev, kind, card, counters, data, post_6, sec_6):
     post = sample_parallel(s, CG_SIZE, burnin=CG_BURNIN, chains=CHAINS,
                            mesh=['cuda:0'] * 2)
     wall = time.perf_counter() - ts
-    pg_n, cg_n = (c.launches for c in counters)
-    # the parent's cold-start check launches each kernel once; each
-    # worker then launches K1 once a step and K3 three times a step, in
-    # its warm-up steps and in its captured step's replays
+    pg_n, cg_n, plan_n = (c.launches for c in counters)
+    # the parent's cold-start check launches each kernel once and its
+    # init the draw plan once; each worker then launches K1 and the plan
+    # once a step and K3 three times a step, in its warm-up steps and in
+    # its captured step's replays
     steps = CG_SIZE + warmup_steps()
     check(pg_n == 1 + 2 * steps,
           f'parallel K1 launches {pg_n} != {1 + 2 * steps}')
     check(cg_n == 1 + 2 * 3 * steps,
           f'parallel K3 launches {cg_n} != {1 + 2 * 3 * steps}')
+    check(plan_n == 1 + 2 * steps,
+          f'parallel draw-plan launches {plan_n} != {1 + 2 * steps}')
     check_posterior(post, CHAINS, CG_SIZE - CG_BURNIN,
                     {'alpha': s.n_alpha, 'beta': s.n_beta, 'tau': 0})
     check_state(s.final_carry)
@@ -387,9 +412,10 @@ def parallel_phase(dev, kind, card, counters, data, post_6, sec_6):
     ess = min_pooled_ess(post)
     busy = max(s.worker_seconds)
     print(f'    (c) 2 workers on cuda:0, {CHAINS} chains ({CHAINS // 2} '
-          f'each), {CG_SIZE}/{CG_BURNIN} draws: K1 {pg_n}, K3 {cg_n} '
-          f'launches, last_solver_resid {s.last_solver_resid:.3e}, worst '
-          f'mean z-ratio vs phase 6 {worst:.3f}')
+          f'each), {CG_SIZE}/{CG_BURNIN} draws: K1 {pg_n}, K3 {cg_n}, '
+          f'draw plan {plan_n} launches, last_solver_resid '
+          f'{s.last_solver_resid:.3e}, worst mean z-ratio vs phase 6 '
+          f'{worst:.3f}')
     print(f'    {kind} ({card}): {CG_SIZE / wall:.2f} it/s over the whole '
           f'call ({wall:.2f} s, worker start-up included), '
           f'{CG_SIZE / busy:.2f} it/s over the workers\' sampling '
@@ -397,7 +423,7 @@ def parallel_phase(dev, kind, card, counters, data, post_6, sec_6):
           f'pooled bulk-ESS {ess:.1f}, ESS/s {ess / wall:.2f}')
     print(f'    phase 6 in one process ({card}): {ALT_SIZE / sec_6:.2f} it/s')
     done(t0)
-    return pg_n, cg_n
+    return pg_n, cg_n, plan_n
 
 
 def sharded_phase(dev, card):
@@ -673,8 +699,8 @@ def two_d_phase(dev, card, counters, meshes, regime, graph_built=None):
     config 5g both take phase 14's graph build (``graph_built``). The
     runs go over ``meshes`` (:func:`two_d_meshes`). The NCCL run (c)
     replays each rank's captured band step; the gloo runs and the timed
-    runs loop on the host. Returns K1's launches in (a) and the two
-    samplers, cls -> sampler."""
+    runs loop on the host. Returns K1's launches in (a), the draw
+    plan's in (a) and (c), and the two samplers, cls -> sampler."""
     import copy
 
     import torch
@@ -759,15 +785,19 @@ def two_d_phase(dev, card, counters, meshes, regime, graph_built=None):
     gloo = meshes['gloo']
 
     # (a) logit, 1 x 4, gloo, four ranks on cuda:0
-    s, post_a, (pg_a, cg_a), ms_a, drift = run(LogitICARGibbs, gloo)
+    s, post_a, (pg_a, cg_a, plan_a), ms_a, drift = run(LogitICARGibbs,
+                                                       gloo)
     want = TWO_D_SITES * TWO_D_STEPS + 1
     check(pg_a == want, f'2-D K1 launches {pg_a} != {want}')
     check(cg_a == 0, f'the 2-D {regime} path launched the K3 CG')
+    # a band plan a step in every rank, and the parent's init plan
+    check(plan_a == want, f'2-D draw-plan launches {plan_a} != {want}')
     diff = close(post_a, ref[LogitICARGibbs], ('alpha', 'beta', 'tau'),
                  '(a) against one process')
     print(f'    (a) logit, {gloo.shape}, gloo, 4 ranks on cuda:0: K1 '
           f'{pg_a} launches ({TWO_D_SITES} ranks x {TWO_D_STEPS} steps + '
-          f'the cold-start check), K3 {cg_a}, every site rank of the row '
+          f'the cold-start check), K3 {cg_a}, draw plan {plan_a} (the '
+          f'same steps + the init plan), every site rank of the row '
           f'holds the same alpha, beta and tau, |sum eta| / sum |eta| '
           f'{drift:.2e}, last_solver_resid {s.last_solver_resid:.3e}, max '
           f'|diff| against one process {diff:.3e} (rtol 2e-3, atol 2e-4)')
@@ -783,19 +813,25 @@ def two_d_phase(dev, card, counters, meshes, regime, graph_built=None):
     check(same, 'a 1 x 1 mesh differs from one process')
     # (c) NCCL, one rank a card
     nccl = meshes['nccl']
-    _, post_c, (pg_c, _), ms_c, _ = run(LogitICARGibbs, nccl)
+    _, post_c, (pg_c, _, plan_c), ms_c, _ = run(LogitICARGibbs, nccl)
     # each rank's warm-up step, then one a replay
-    check(pg_c == n_cards * (TWO_D_STEPS + warmup_steps()) + 1,
-          f'NCCL K1 launches {pg_c}')
+    want_c = n_cards * (TWO_D_STEPS + warmup_steps()) + 1
+    check(pg_c == want_c, f'NCCL K1 launches {pg_c} != {want_c}')
+    check(plan_c == want_c, f'NCCL draw-plan launches {plan_c} != {want_c}')
     diff_c = close(post_c, post_a, ('alpha', 'beta', 'tau'), '(c) vs (a)')
     diff_cl = close(post_c, ref[LogitICARGibbs], ('alpha', 'beta', 'tau'),
                     '(c) vs one process')
     print(f'    (c) logit, {nccl.shape}, NCCL over {n_cards} card(s), the '
-          f'captured band step: K1 {pg_c} launches, max |diff| against (a) '
-          f'{diff_c:.3e}, against one process {diff_cl:.3e}')
+          f'captured band step: K1 {pg_c}, draw plan {plan_c} launches, '
+          f'max |diff| against (a) {diff_c:.3e}, against one process '
+          f'{diff_cl:.3e}')
     # (d) probit
-    _, post_d, (pg_d, _), ms_d, drift = run(ProbitICARGibbs, gloo)
+    s_d, post_d, (pg_d, _, plan_d), ms_d, drift = run(ProbitICARGibbs,
+                                                      gloo)
     check(pg_d == 0, 'the probit path launched the PG kernel')
+    want_d = TWO_D_SITES * TWO_D_STEPS + init_plans(s_d)
+    check(plan_d == want_d,
+          f'2-D probit draw-plan launches {plan_d} != {want_d}')
     diff_d = close(post_d, ref[ProbitICARGibbs], ('beta', 'tau'),
                    '(d) against one process')
     print(f'    (d) probit, {gloo.shape}, gloo: max |diff| of beta and tau '
@@ -835,7 +871,7 @@ def two_d_phase(dev, card, counters, meshes, regime, graph_built=None):
                           for k, v in sorted(by.items()))
               + f'; all all-reduces {coll:.3f}')
     done(t0)
-    return pg_a, built
+    return pg_a, (plan_a, plan_c), built
 
 
 def dense_2d_phase(dev, card, counters, meshes, head, lattice):
@@ -850,8 +886,8 @@ def dense_2d_phase(dev, card, counters, meshes, head, lattice):
     leaves that tolerance after an exact accept decision of K1 flipped
     (:func:`flipped` inside: the rounding of the partitioned sums moved a
     lane's input across a rejection boundary). The timed ranks loop on
-    the host. Returns K1's and K3's launches in (a) and the samplers,
-    case -> sampler."""
+    the host. Returns K1's, K3's and the draw plan's launches in (a) and
+    the samplers, case -> sampler."""
     import copy
 
     import torch
@@ -997,7 +1033,8 @@ def dense_2d_phase(dev, card, counters, meshes, head, lattice):
             check(d < 1e-4, f'17({k}) eta off the hyperplane: {d:.2e}')
             drift = f', |sum eta| / sum |eta| {d:.2e}'
         print(f'    ({k}) {label}, {mesh.shape}, {mesh.backend}: K1 '
-              f'{launches[0]}, K3 {launches[1]} launches; every site rank '
+              f'{launches[0]}, K3 {launches[1]}, draw plan {launches[2]} '
+              f'launches; every site rank '
               f'of a row holds the same alpha, beta and tau{drift}; max '
               f'|diff| against one process {diff:.3e} (rtol 2e-3, atol '
               f'2e-4) over {cases[k][4] - len(diverged)} of '
@@ -1017,17 +1054,20 @@ def dense_2d_phase(dev, card, counters, meshes, head, lattice):
     gloo = meshes['gloo']
     steps = TWO_D_SITES * TWO_D_STEPS
     # (a) the headline problem, K3 in every rank on its row's field
-    s, post, (pg_a, cg_a) = run('a', gloo)
+    s, post, (pg_a, cg_a, plan_a) = run('a', gloo)
     check(pg_a == 1 + steps, f'17(a) K1 launches {pg_a} != {1 + steps}')
     check(cg_a == 1 + 3 * steps,
           f'17(a) K3 launches {cg_a} != {1 + 3 * steps}')
+    check(plan_a == 1 + steps,
+          f'17(a) draw-plan launches {plan_a} != {1 + steps}')
     show('a', "LogitICARGibbs 'cg', cg_impl='pallas', config 4, "
-              f'{CHAINS} chains', s, post, (pg_a, cg_a), gloo)
+              f'{CHAINS} chains', s, post, (pg_a, cg_a, plan_a), gloo)
     # (b) one rank: the band is the field, under gloo and under NCCL
     for mesh in (meshes['gloo1'], meshes['nccl1']):
-        s_b, post_b, (pg_b, cg_b) = run('a', mesh)
-        check((pg_b, cg_b) == (1 + TWO_D_STEPS, 1 + 3 * TWO_D_STEPS),
-              f'17(b) launches {pg_b}, {cg_b}')
+        s_b, post_b, (pg_b, cg_b, plan_b) = run('a', mesh)
+        check((pg_b, cg_b, plan_b)
+              == (1 + TWO_D_STEPS, 1 + 3 * TWO_D_STEPS, 1 + TWO_D_STEPS),
+              f'17(b) launches {pg_b}, {cg_b}, {plan_b}')
         same = all(np.array_equal(post_b[k], ref['a'][k])
                    for k in ('alpha', 'beta', 'tau'))
         same = same and all(
@@ -1054,11 +1094,12 @@ def dense_2d_phase(dev, card, counters, meshes, head, lattice):
     }
     for k, (label, want_pg, want_cg) in labels.items():
         s, post, launches = run(k, gloo)
-        check(launches == [want_pg, want_cg],
-              f'17({k}) launches {launches} != {[want_pg, want_cg]}')
+        # a plan a step in every rank, and the parent's init plans
+        want = [want_pg, want_cg, steps + init_plans(s)]
+        check(launches == want, f'17({k}) launches {launches} != {want}')
         show(k, label, s, post, launches, gloo)
     done(t0)
-    return pg_a, cg_a, built
+    return pg_a, cg_a, plan_a, built
 
 
 def graph_phase(dev, card, paths, lattice):
@@ -1095,6 +1136,32 @@ def graph_phase(dev, card, paths, lattice):
         torch.cuda.synchronize()
         return out, start.elapsed_time(end) / GRAPH_STEPS
 
+    def profiled(runner, carry):
+        """Kernels a replay by the profiler, K1, K3 and the draw plan a
+        replay by the profiler and by the kernels' counters, over
+        GRAPH_PROFILE_STEPS replays after one with the tracer on and its
+        events dropped (the first kernels after the tracer starts may go
+        unrecorded)."""
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            runner.run(carry, 1)
+            torch.cuda.synchronize()
+            prof.step()
+            for c in KERNEL_COUNTERS:
+                c.launches = 0
+            runner.run(carry, GRAPH_PROFILE_STEPS)
+            torch.cuda.synchronize()
+            prof.step()
+        counted = [c.launches / GRAPH_PROFILE_STEPS for c in KERNEL_COUNTERS]
+        kernels = [e.name for e in prof.events()
+                   if e.device_type.name == 'CUDA'
+                   and not e.is_user_annotation
+                   and not e.name.startswith(('Memcpy', 'Memset'))]
+        seen = [sum(tag in n for n in kernels) / GRAPH_PROFILE_STEPS
+                for tag in ('pg_devroye', 'icar_cg', 'threefry_plan')]
+        return len(kernels) / GRAPH_PROFILE_STEPS, seen, counted
+
     failed = []
     for label, (s, chains) in paths.items():
         check(not s._runs_eagerly(), f'{label} runs eagerly')
@@ -1113,27 +1180,17 @@ def graph_phase(dev, card, paths, lattice):
         pairs = [(o_g[k], o_e[k]) for k in o_e] + [(c_g.keys, c_e.keys)] + [
             (c_g.states[k], v) for k, v in c_e.states.items()]
         same = all(torch.equal(a, b) for a, b in pairs)
-        # one replay with the tracer on and its events dropped: the first
-        # kernels after the tracer starts may go unrecorded
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            runner.run(carry, 1)
-            torch.cuda.synchronize()
-            prof.step()
-            for c in KERNEL_COUNTERS:
-                c.launches = 0
-            runner.run(carry, GRAPH_PROFILE_STEPS)
-            torch.cuda.synchronize()
-            prof.step()
-        counted = [c.launches / GRAPH_PROFILE_STEPS for c in KERNEL_COUNTERS]
-        kernels = [e.name for e in prof.events()
-                   if e.device_type.name == 'CUDA'
-                   and not e.is_user_annotation
-                   and not e.name.startswith(('Memcpy', 'Memset'))]
-        per = len(kernels) / GRAPH_PROFILE_STEPS
-        seen = [sum(tag in n for n in kernels) / GRAPH_PROFILE_STEPS
-                for tag in ('pg_devroye', 'icar_cg')]
+        # the profiler can lose kernel records (a probit graph replay
+        # once counted 977.0 kernels against 1,063.6 in another run, and
+        # 7 of its 8 draw-plan launches), so a count the kernels'
+        # counters and the graph contradict is traced again, twice at most
+        for attempt in range(3):
+            per, seen, counted = profiled(runner, carry)
+            if seen == counted == runner.per_replay:
+                break
+            print(f'    {label}: profile {attempt + 1} saw K1, K3, draw '
+                  f'plan {seen} a replay ({per:.1f} kernels), counters '
+                  f'{counted}')
         if same:
             bits = 'draws and final carry bit-identical'
         else:
@@ -1142,7 +1199,8 @@ def graph_phase(dev, card, paths, lattice):
             bits = f'NOT bit-identical, max |diff| {diff:.3e}'
             failed.append(f'{label}: {bits}')
         if not seen == counted == runner.per_replay:
-            failed.append(f'{label}: K1, K3 a replay by the profiler {seen}, '
+            failed.append(f'{label}: K1, K3, draw plan a replay by the '
+                          f'profiler {seen}, '
                           f'by the kernels\' counters {counted}, recorded '
                           f'in the graph {runner.per_replay}')
         print(f'    {label}, {chains} chains: {bits}; ms a step eager '
@@ -1150,9 +1208,10 @@ def graph_phase(dev, card, paths, lattice):
               f'({eager_ms / graph_ms:.2f}x); warm-up and capture '
               f'{setup:.3f} s (capture '
               f'{runner.capture_seconds:.3f} s); kernels a replay '
-              f'(profiler) {per:.1f}, K1 {seen[0]:g}, K3 {seen[1]:g} '
-              f'(counters {counted[0]:g}, {counted[1]:g}; recorded '
-              f'{runner.per_replay[0]}, {runner.per_replay[1]})')
+              f'(profiler) {per:.1f}, K1 {seen[0]:g}, K3 {seen[1]:g}, '
+              f'draw plan {seen[2]:g} (counters '
+              f'{", ".join(f"{c:g}" for c in counted)}; recorded '
+              f'{", ".join(map(str, runner.per_replay))})')
     check(not failed, '; '.join(failed))
     done(t0)
 
@@ -1163,14 +1222,15 @@ def nccl_graph_phase(dev, card, counters, nccl, regimes):
     step captured as one CUDA graph with its all-reduces inside, against
     the same run in the host loop (``_force_eager``): :data:`GRAPH_STEPS`
     steps each way per regime (``regimes``: label -> (sampler, chains,
-    K1 and K3 launches a step, the cold-start check's)), draws and final
-    carry bit for bit, ms a step of each runner, the capture's seconds,
-    and K1's and K3's launches: the warm-up step's and ``per_replay`` x
-    ``replays`` in every rank, plus the parent's cold-start check. Then a
+    K1, K3 and draw-plan launches a step, the cold-start check's and the
+    init's)), draws and final carry bit for bit, ms a step of each
+    runner, the capture's seconds, and K1's, K3's and the draw plan's
+    launches: the warm-up step's and ``per_replay`` x ``replays`` in
+    every rank, plus the parent's cold-start check and init. Then a
     ``track=('eta',)`` run of phase 15's logit sampler at
     :data:`TRACK_SIZE` draws: its rank's peak card memory within the
     untracked captured run's plus the 256 MB budget plus 32 MB. Returns
-    K1's and K3's launches over the captured runs."""
+    K1's, K3's and the draw plan's launches over the captured runs."""
     import copy
 
     import torch
@@ -1199,7 +1259,7 @@ def nccl_graph_phase(dev, card, counters, nccl, regimes):
         ms = 1e3 * max(float(np.mean(t[2:])) for t in s.rank_step_seconds)
         return s, post, launches, ms
 
-    failed, total = [], [0, 0]
+    failed, total = [], [0, 0, 0]
     untracked = None
     for label, (s0, chains, per_step, cold) in regimes.items():
         s_g, post_g, got_g, ms_g = run(s0, chains, GRAPH_STEPS)
@@ -1230,16 +1290,17 @@ def nccl_graph_phase(dev, card, counters, nccl, regimes):
         if (per_replay != [list(per_step)] * n_cards
                 or replays != [GRAPH_STEPS] * n_cards
                 or got_g != want_g or got_e != want_e):
-            failed.append(f'{label}: K1, K3 launches captured {got_g} '
+            failed.append(f'{label}: K1, K3, plan launches captured {got_g} '
                           f'(want {want_g}), eager {got_e} (want {want_e}); '
                           f'per replay {per_replay}, replays {replays}')
         capture = max(r['capture_seconds'] for r in runs)
         print(f'    {label}, {chains} chains: {bits}; ms a step (steps '
               f'3-{GRAPH_STEPS}, the slowest rank) eager {ms_e:.3f}, '
               f'captured {ms_g:.3f} ({ms_e / ms_g:.2f}x); capture '
-              f'{capture:.3f} s; K1, K3 launches captured {got_g} = '
+              f'{capture:.3f} s; K1, K3, plan launches captured {got_g} = '
               f'{n_cards} rank(s) x ({GRAPH_STEPS} replays + {warm} warm-up) '
-              f'x {per_replay[0]} a replay + {list(cold)} cold-start check, '
+              f'x {per_replay[0]} a replay + {list(cold)} cold-start check '
+              f'and init, '
               f'eager {got_e}')
     check(not failed, '; '.join(failed))
 
@@ -1270,9 +1331,11 @@ def nccl_graph_phase(dev, card, counters, nccl, regimes):
 
 def large_n_phases(dev, kind, card, counters):
     """Phases 10-12: both ICAR samplers' matrix-free eta regimes on the
-    10,000-site lattice of bench.py configs 5 and 5g. Returns K1's
-    launches on the stencil and graph logit paths and the four samplers
-    with their chain counts (label -> (sampler, chains))."""
+    10,000-site lattice of bench.py configs 5 and 5g. Returns K1's and
+    the draw plan's launches on the stencil and graph logit paths
+    (regime -> (K1, plan)), the four samplers with their chain counts
+    (label -> (sampler, chains)) and phase 10's draw-plan timing
+    (:func:`threefry_plan_times`)."""
     import scipy.sparse as sps
     import torch
 
@@ -1307,28 +1370,35 @@ def large_n_phases(dev, kind, card, counters):
                   f'graph layout {g} cg_iters {s.cg_iters}')
             print(f'    graph: {g}')
         print(f'    build seconds (sampler construction) {build:.2f}')
-        post, sec, (pg_n, cg_n) = run_timed(s, LARGE_SIZE, LARGE_BURNIN,
-                                            chains, counters)
-        # one PG launch a step (warm-up and replays) plus the cold-start
-        # check's; no K3
+        post, sec, (pg_n, cg_n, plan_n) = run_timed(
+            s, LARGE_SIZE, LARGE_BURNIN, chains, counters)
+        # one PG and one draw-plan launch a step (warm-up and replays),
+        # plus the cold-start check's PG and the init's plan; no K3
         want = LARGE_SIZE + warmup_steps() + 1
         check(pg_n == want, f'{regime} PG launches {pg_n} != {want}')
         check(cg_n == 0, f'{regime} launched the K3 CG')
+        check(plan_n == want,
+              f'{regime} draw-plan launches {plan_n} != {want}')
         check_posterior(post, chains, LARGE_SIZE - LARGE_BURNIN, dims)
         check_state(s.final_carry)
         check(s.last_solver_resid < 0.2,
               f'{regime} residual {s.last_solver_resid}')
         drift = plane_drift(s.final_carry.states['eta'])
         check(drift < 1e-4, f'{regime} eta off the hyperplane: {drift:.2e}')
-        print(f'    PG launches {pg_n}, last_solver_resid '
+        print(f'    PG launches {pg_n}, draw-plan launches {plan_n}, '
+              f'last_solver_resid '
               f'{s.last_solver_resid:.3e}, |sum eta| / sum |eta| '
               f'{drift:.2e}')
         report(f'{kind} ({card})', post, LARGE_SIZE, sec)
-        posts[regime], launches[regime], samplers[regime] = post, pg_n, s
+        posts[regime], samplers[regime] = post, s
+        launches[regime] = (pg_n, plan_n)
         return t0
 
-    done(logit('stencil', '10 LogitICARGibbs stencil, config 5 (100 x 100 '
-                          'lattice, 32 chains)'))
+    t0 = logit('stencil', '10 LogitICARGibbs stencil, config 5 (100 x 100 '
+                          'lattice, 32 chains)')
+    plan_times = threefry_plan_times(dev, samplers['stencil'],
+                                     LARGE_CHAINS['stencil'])
+    done(t0)
     t0 = logit('graph', '11 LogitICARGibbs graph, config 5g (the same '
                         'problem as a sparse Q, 64 chains)')
     worst = mean_parity(posts['stencil'], posts['graph'])
@@ -1374,7 +1444,9 @@ def large_n_phases(dev, kind, card, counters):
         post, sec, n_launch = run_timed(
             s, PROBIT_LARGE_SIZE, PROBIT_LARGE_BURNIN, PROBIT_LARGE_CHAINS,
             counters)
-        check(n_launch == [0, 0], 'the probit path launched a kernel')
+        want = [0, 0, PROBIT_LARGE_SIZE + warmup_steps() + init_plans(s)]
+        check(n_launch == want,
+              f'probit {regime} launches {n_launch} != {want}')
         check_posterior(post, PROBIT_LARGE_CHAINS,
                         PROBIT_LARGE_SIZE - PROBIT_LARGE_BURNIN, dims)
         check_state(s.final_carry)
@@ -1390,7 +1462,7 @@ def large_n_phases(dev, kind, card, counters):
     worst = mean_parity(probit['stencil'], probit['graph'])
     print(f'    worst mean z-ratio, stencil vs graph {worst:.3f}')
     done(t0)
-    return launches, paths
+    return launches, paths, plan_times
 
 
 def span_marks_phase(dev):
@@ -1500,6 +1572,46 @@ def span_marks_phase(dev):
     done(t0)
 
 
+def threefry_plan_times(dev, sampler, chains):
+    """The Threefry draw-plan kernel at ``sampler``'s step plan over
+    ``chains`` chains: one launch, bit for bit the plain int64 torch ops
+    on the card, both timed eager and replayed from a CUDA graph, with
+    the kernel's bound. Returns its numbers for the report's entry."""
+    import torch
+
+    from occuspytial_tpu_torch import rng
+    from occuspytial_tpu_torch.ops.cuda_rng import threefry_plan
+
+    plan = sampler._plan
+    keys = rng.chain_keys(LARGE['seed'], chains, rng.RUN, dev)
+    step = torch.full((), 2 ** 32 + 5, dtype=torch.int64, device=dev)
+    before = threefry_plan.counter.launches
+    got = threefry_plan(keys, plan.x1, step)
+    check(threefry_plan.counter.launches == before + 1,
+          'the draw plan is not one launch')
+    check(torch.equal(got, rng.plan_words(keys, plan.x1, step)),
+          'the draw-plan kernel\'s words differ from the torch ops\'')
+    ms = time_ms(lambda: threefry_plan(keys, plan.x1, step), 200)
+    ms_graph = graph_ms(lambda: threefry_plan(keys, plan.x1, step))
+    plain_ms = time_ms(lambda: rng.plan_words(keys, plan.x1, step), 20)
+    plain_graph = graph_ms(lambda: rng.plan_words(keys, plan.x1, step))
+    counters = plan.x1.numel()
+    evals = chains * counters
+    written = 16 * evals
+    ops = THREEFRY_OPS * evals
+    bound = max(written / PEAK_BYTES, ops / PEAK_INT32) * 1e3
+    by = 'bytes' if written / PEAK_BYTES >= ops / PEAK_INT32 \
+        else 'integer operations'
+    print(f'    draw plan: {counters} counters x {chains} chains, '
+          f'{written / 1e6:.2f} MB written, {ops / 1e6:.1f} M integer '
+          f'operations; kernel {ms:.5f} ms ({ms_graph:.5f} in a graph), '
+          f'torch ops {plain_ms:.5f} ms ({plain_graph:.5f} in a graph), '
+          f'bound {bound:.5f} ms ({by}); bit-identical')
+    return dict(counters=counters, chains=chains, ms=ms,
+                ms_captured=ms_graph, plain_ms=plain_ms,
+                plain_ms_captured=plain_graph, bound_ms=bound, bound_by=by)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--stop-after', type=int, default=19)
@@ -1556,6 +1668,7 @@ def main():
         k3_operands,
     )
     from occuspytial_tpu_torch.ops.cuda_pg import pg_devroye_cuda
+    from occuspytial_tpu_torch.ops.cuda_rng import threefry_plan
     from occuspytial_tpu_torch.utils import make_data
 
     Q, W, X, y, *_ = make_data(**HEAD)
@@ -1640,6 +1753,10 @@ def main():
     print(f'    draw (one launch, inputs in the kernel) {pg_ms:.4f} ms, plain '
           f'{pg_plain_ms:.4f} ms, lane-rounds {lane_rounds[0]}, bound '
           f'{pg_bound:.5f} ms')
+    done(t0)
+    t0 = phase('3b Threefry draw-plan kernel against the torch-op plan, '
+               'the headline problem\'s step plan')
+    plan_head = threefry_plan_times(dev, s, CHAINS)
     done(t0)
 
     t0 = phase('4 K3 eigenbasis CG kernel against the plain spectral CG')
@@ -1853,6 +1970,7 @@ def main():
     warm = warmup_steps()
     pg_devroye_cuda.counter.launches = 0
     icar_cg_solve_cuda.counter.launches = 0
+    threefry_plan.counter.launches = 0
     torch.cuda.synchronize()
     ts = time.perf_counter()
     post = main.sample(MAIN_SIZE, burnin=MAIN_BURNIN, chains=CHAINS,
@@ -1860,15 +1978,19 @@ def main():
     torch.cuda.synchronize()
     main_sec = time.perf_counter() - ts
     pg_launches = pg_devroye_cuda.counter.launches
+    plan_launches = threefry_plan.counter.launches
     runner = main._graph_runners[(CHAINS, ())]
-    # one a step: the warm-up step, then one a replay; plus the cold-start
-    # solver check's
-    check(runner.per_replay == [1, 0] and runner.length == MAIN_SIZE
+    # K1 and the draw plan once a step: the warm-up step, then one a
+    # replay; plus the cold-start solver check's K1 and the init's plan
+    check(runner.per_replay == [1, 0, 1] and runner.length == MAIN_SIZE
           and runner.replays == MAIN_SIZE,
           f'main path graph: {runner.per_replay} recorded, length '
           f'{runner.length}, {runner.replays} replays')
     check(pg_launches == MAIN_SIZE + warm + 1,
           f'PG launches {pg_launches} != {MAIN_SIZE + warm + 1}')
+    check(plan_launches == MAIN_SIZE + warm + init_plans(main),
+          f'draw-plan launches {plan_launches} != '
+          f'{MAIN_SIZE + warm + init_plans(main)}')
     for name in ('alpha', 'beta', 'tau'):
         arr = np.asarray(post[name])
         check(np.isfinite(arr).all(), f'non-finite {name} draws')
@@ -1884,7 +2006,8 @@ def main():
           f'step and the capture ({runner.capture_seconds:.3f} s) '
           f'included); K1 {pg_launches} launches by its counter on the '
           f'card, {runner.per_replay[0]} recorded in the graph, '
-          f'{runner.replays} replays')
+          f'{runner.replays} replays; draw plan {plan_launches} launches '
+          f'by its counter, {runner.per_replay[2]} recorded')
     for name in ('alpha', 'beta', 'tau'):
         print(f'    {name} mean {np.asarray(post[name]).mean(axis=(0, 1))}')
     done(t0)
@@ -1894,6 +2017,7 @@ def main():
                          device=dev, cg_impl='pallas')
     pg_devroye_cuda.counter.launches = 0
     icar_cg_solve_cuda.counter.launches = 0
+    threefry_plan.counter.launches = 0
     torch.cuda.synchronize()
     ts = time.perf_counter()
     post_alt = alt.sample(ALT_SIZE, burnin=ALT_BURNIN, chains=CHAINS,
@@ -1902,8 +2026,9 @@ def main():
     alt_sec = time.perf_counter() - ts
     cg_launches = icar_cg_solve_cuda.counter.launches
     pg_launches_alt = pg_devroye_cuda.counter.launches
+    plan_launches_alt = threefry_plan.counter.launches
     alt_runner = alt._graph_runners[(CHAINS, ())]
-    check(alt_runner.per_replay == [1, 3]
+    check(alt_runner.per_replay == [1, 3, 1]
           and alt_runner.replays == ALT_SIZE,
           f'cg_impl=pallas graph: {alt_runner.per_replay} recorded, '
           f'{alt_runner.replays} replays')
@@ -1912,6 +2037,8 @@ def main():
     want = 3 * (ALT_SIZE + warm) + 1
     check(cg_launches == want, f'CG launches {cg_launches} != {want}')
     check(pg_launches_alt == ALT_SIZE + warm + 1, 'PG launches in phase 6')
+    check(plan_launches_alt == ALT_SIZE + warm + init_plans(alt),
+          f'draw-plan launches in phase 6: {plan_launches_alt}')
     for name in ('alpha', 'beta', 'tau'):
         check(np.isfinite(np.asarray(post_alt[name])).all(),
               f'non-finite {name} draws (pallas CG)')
@@ -1924,12 +2051,14 @@ def main():
           f'last_solver_resid {alt.last_solver_resid:.3e}, worst mean '
           f'z-ratio vs phase 5 {worst:.3f}; K3 {cg_launches} launches by '
           f'its counter, {alt_runner.per_replay[1]} recorded in the graph, '
-          f'{alt_runner.replays} replays')
+          f'{alt_runner.replays} replays; draw plan {plan_launches_alt} '
+          f'launches')
     done(t0)
 
     if args.stop_after < 7:
         return
-    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter)
+    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
+                threefry_plan.counter)
     kept = NEW_SIZE - NEW_BURNIN
 
     t0 = phase('7 LogitRSRGibbs, config 3 width (n = 1000, q = 100, '
@@ -1939,7 +2068,8 @@ def main():
     check(rsr.q_dim == RSR_Q and rsr.spatial_sweeps == 2
           and rsr.pg_method == 'pallas_packed' and not rsr._solves_lambda,
           'unexpected RSR defaults')
-    post_rsr, rsr_sec, (rsr_pg_launches, rsr_cg_launches) = run_timed(
+    post_rsr, rsr_sec, (rsr_pg_launches, rsr_cg_launches,
+                        rsr_plan_launches) = run_timed(
         rsr, NEW_SIZE, NEW_BURNIN, CHAINS, counters)
     # one PG launch a step (warm-up and replays) and no other: no
     # cold-start solver check (the RSR eta draw never solves against
@@ -1948,6 +2078,9 @@ def main():
           f'RSR PG launches {rsr_pg_launches} != {NEW_SIZE + warm}')
     check(rsr_cg_launches == 0 and not rsr._solver_checked,
           'RSR ran the ICAR solver')
+    want = NEW_SIZE + warm + init_plans(rsr)
+    check(rsr_plan_launches == want,
+          f'RSR draw-plan launches {rsr_plan_launches} != {want}')
     check_posterior(post_rsr, CHAINS, kept, {'alpha': s.n_alpha,
                                              'beta': s.n_beta, 'tau': 0})
     check_state(rsr.final_carry)
@@ -1969,7 +2102,9 @@ def main():
           and picar.collapsed, 'unexpected probit ICAR defaults')
     post_picar, picar_sec, picar_launches = run_timed(
         picar, NEW_SIZE, NEW_BURNIN, PROBIT_ICAR_CHAINS, counters)
-    check(picar_launches == [0, 0], 'the probit path launched a kernel')
+    want = [0, 0, NEW_SIZE + warm + init_plans(picar)]
+    check(picar_launches == want,
+          f'probit ICAR launches {picar_launches} != {want}')
     check_posterior(post_picar, PROBIT_ICAR_CHAINS, kept,
                     {'alpha': picar.n_alpha, 'beta': picar.n_beta, 'tau': 0})
     check_state(picar.final_carry)
@@ -1988,7 +2123,9 @@ def main():
                                  collapsed=collapsed, device=dev)
         post_p, sec_p, launches_p = run_timed(
             sampler, NEW_SIZE, NEW_BURNIN, PROBIT_RSR_CHAINS, counters)
-        check(launches_p == [0, 0], 'the probit path launched a kernel')
+        want = [0, 0, NEW_SIZE + warm + init_plans(sampler)]
+        check(launches_p == want,
+              f'probit RSR launches {launches_p} != {want}')
         check_posterior(post_p, PROBIT_RSR_CHAINS, kept,
                         {'alpha': sampler.n_alpha, 'beta': sampler.n_beta,
                          'tau': 0})
@@ -2011,12 +2148,14 @@ def main():
     }
     if args.stop_after < 10:
         return
-    large_launches, large_paths = large_n_phases(dev, kind, card, counters)
+    large_launches, large_paths, plan_large = large_n_phases(
+        dev, kind, card, counters)
     paths.update(large_paths)
     if args.stop_after < 13:
         return
-    par_pg, par_cg = parallel_phase(dev, kind, card, counters,
-                                    (Q, W, X, y), post_alt, alt_sec)
+    par_pg, par_cg, par_plan = parallel_phase(dev, kind, card, counters,
+                                              (Q, W, X, y), post_alt,
+                                              alt_sec)
     if args.stop_after < 14:
         return
     graph_5g = sharded_phase(dev, card)
@@ -2028,34 +2167,38 @@ def main():
     with contextlib.ExitStack() as held:
         for mesh in {id(m): m for m in meshes.values()}.values():
             held.enter_context(mesh)
-        two_d_pg, lattice_2d = two_d_phase(dev, card, counters, meshes,
-                                           'stencil')
+        two_d_pg, two_d_plan, lattice_2d = two_d_phase(
+            dev, card, counters, meshes, 'stencil')
         if args.stop_after < 16:
             return
-        two_d_graph_pg, graph_2d = two_d_phase(dev, card, counters, meshes,
-                                               'graph', graph_5g)
+        two_d_graph_pg, two_d_graph_plan, graph_2d = two_d_phase(
+            dev, card, counters, meshes, 'graph', graph_5g)
         if args.stop_after < 17:
             return
-        dense_pg, dense_cg, dense_2d = dense_2d_phase(
+        dense_pg, dense_cg, dense_plan, dense_2d = dense_2d_phase(
             dev, card, counters, meshes, (Q, W, X, y), (Q2, W2, X2, y2))
         if args.stop_after < 18:
             return
         graph_phase(dev, card, paths, (Q2, W2, X2, y2))
         if args.stop_after < 19:
             return
-        # label: (sampler, chains, K1 and K3 a step, the cold-start check's)
-        nccl_pg, nccl_cg = nccl_graph_phase(dev, card, counters,
-                                            meshes['nccl'], {
+        # label: (sampler, chains, K1, K3 and the draw plan a step, the
+        # cold-start check's K1 and K3 and the init's plans)
+        regimes = {
             'logit stencil': (lattice_2d[LogitICARGibbs],
-                              LARGE_CHAINS['stencil'], (1, 0), (1, 0)),
+                              LARGE_CHAINS['stencil'], (1, 0, 1), (1, 0)),
             'logit graph': (graph_2d[LogitICARGibbs], LARGE_CHAINS['graph'],
-                            (1, 0), (1, 0)),
-            "logit 'cg' cg_impl='pallas'": (dense_2d['a'], CHAINS, (1, 3),
-                                            (1, 1)),
-            'logit RSR': (dense_2d['d'], CHAINS, (1, 0), (0, 0)),
+                            (1, 0, 1), (1, 0)),
+            "logit 'cg' cg_impl='pallas'": (dense_2d['a'], CHAINS,
+                                            (1, 3, 1), (1, 1)),
+            'logit RSR': (dense_2d['d'], CHAINS, (1, 0, 1), (0, 0)),
             'probit stencil': (lattice_2d[ProbitICARGibbs],
-                               LARGE_CHAINS['stencil'], (0, 0), (0, 0)),
-        })
+                               LARGE_CHAINS['stencil'], (0, 0, 1), (0, 0)),
+        }
+        regimes = {k: (s, c, step, cold + (init_plans(s),))
+                   for k, (s, c, step, cold) in regimes.items()}
+        nccl_pg, nccl_cg, nccl_plan = nccl_graph_phase(
+            dev, card, counters, meshes['nccl'], regimes)
 
     t0 = phase('20 report')
     # no single PyTorch call computes either function (a fixed-round
@@ -2069,8 +2212,8 @@ def main():
         launches=pg_launches, replays=runner.replays,
         launches_per_replay=runner.per_replay[0],
         launches_logit_rsr=rsr_pg_launches,
-        launches_logit_stencil=large_launches['stencil'],
-        launches_logit_graph=large_launches['graph'],
+        launches_logit_stencil=large_launches['stencil'][0],
+        launches_logit_graph=large_launches['graph'][0],
         launches_parallel=par_pg, launches_2d=two_d_pg,
         launches_2d_graph=two_d_graph_pg, launches_2d_dense=dense_pg,
         launches_2d_captured=nccl_pg,
@@ -2096,6 +2239,19 @@ def main():
         bound_float32_ms=cg_bound_f32,
         bound_by='operations'
         if 3 * cg_ops / PEAK_TF32 > cg_bytes / PEAK_BYTES else 'bytes',
+    ))
+    kernels.append(dict(
+        common, name='threefry_plan (no TPU counterpart)',
+        source='occuspytial_tpu_torch/csrc/pg_devroye.cu', replaces=None,
+        launches=plan_launches, replays=runner.replays,
+        launches_per_replay=runner.per_replay[2],
+        launches_logit_rsr=rsr_plan_launches,
+        launches_logit_stencil=large_launches['stencil'][1],
+        launches_logit_graph=large_launches['graph'][1],
+        launches_parallel=par_plan, launches_2d=two_d_plan[0],
+        launches_2d_nccl=two_d_plan[1], launches_2d_graph=two_d_graph_plan[0],
+        launches_2d_dense=dense_plan, launches_2d_captured=nccl_plan,
+        headline=plan_head, lattice10k_stencil=plan_large,
     ))
     done(t0)
     print(json.dumps({'kernels': kernels}))

@@ -1,4 +1,6 @@
-// Exact Polya-Gamma PG(1, z) draws by Devroye rejection, from z alone.
+// Exact Polya-Gamma PG(1, z) draws by Devroye rejection, from z alone; and
+// the Threefry word plane of a step's draw plan (threefry_plan_kernel, at
+// the end of the file), which shares this file's Threefry function.
 //
 // Replaces the Pallas kernels of occuspytial_tpu/ops/pallas_pg.py:
 // _pg_kernel_grouped (the packed TPU default, launched by
@@ -289,6 +291,55 @@ pg_devroye_kernel(const long long* __restrict__ subkeys,
     }
 }
 
+// The Threefry draw plan: the word plane of one rng.DrawPlan call.
+//
+// Replaces no TPU kernel: the JAX package leaves jax.random to XLA, which
+// fuses it. It was added because the plan in int64 torch ops
+// (rng.threefry2x32 over the whole (chains, counters) plane, then a stack)
+// is about 172 kernels a Gibbs step, each reading and writing the plane.
+//
+// Thread (chain, j) computes threefry(key of the chain, (step, x1[j])) in
+// registers and stores its two words as one 16-byte longlong2 at columns
+// 2j and 2j + 1 of the chain's row: neighbouring threads write neighbouring
+// 16 bytes, and the plane is the (chains, 2 * counters) int64 layout of
+// torch.stack([y0, y1], -1). Block row y of the grid is chain y (at most
+// 65,535 chains, which the wrapper checks), so a chain's key words are one
+// broadcast load a block.
+//
+// The step word comes from a device pointer when given (a captured CUDA
+// graph advances the 0-d step tensor in place; a host value would be
+// frozen into the graph at capture), else from the host argument; its low
+// 32 bits are the first counter word, as (step + k0) & MASK in rng.py.
+//
+// What bounds it: the bytes written, 16 a counter, and ~80 32-bit integer
+// operations a counter (20 rounds of add, funnel shift, xor; 5 key
+// injections). At icar1k's plan (6,660 counters x 64 chains) that is
+// 6.8 MB (2.0 us at 3.35 TB/s) and ~34 M operations (~2 us at ~16.7 T
+// integer operations/s); at lattice10k's (54,459 x 32) 27.9 MB (8.3 us)
+// and ~139 M operations (~8.3 us).
+constexpr int kPlanThreads = 256;
+
+__global__ void __launch_bounds__(kPlanThreads)
+threefry_plan_kernel(const long long* __restrict__ keys, long long key_stride,
+                     const long long* __restrict__ x1, int n_ctr,
+                     const long long* __restrict__ step_ptr,
+                     long long step_host, longlong2* __restrict__ out,
+                     unsigned long long* __restrict__ launches) {
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+        atomicAdd(launches, 1ULL);
+    const int j = blockIdx.x * kPlanThreads + threadIdx.x;
+    if (j >= n_ctr) return;
+    const int chain = blockIdx.y;
+    // the key words are uint32 values held in int64
+    const uint32_t k0 = (uint32_t)keys[key_stride * chain];
+    const uint32_t k1 = (uint32_t)keys[key_stride * chain + 1];
+    uint32_t y0 = (uint32_t)(step_ptr ? *step_ptr : step_host);
+    uint32_t y1 = (uint32_t)x1[j];
+    threefry2x32(k0, k1, y0, y1);
+    out[(long long)chain * n_ctr + j] =
+        make_longlong2((long long)y0, (long long)y1);
+}
+
 }  // namespace
 
 // `subkeys` (chains, 2) int64 key words, chain b's pair at
@@ -315,4 +366,24 @@ extern "C" int pg_devroye_launch(const void* subkeys, long long key_stride,
 
 extern "C" const char* pg_devroye_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
+}
+
+// `keys` (chains, 2) int64 key words, chain b's pair at keys[b *
+// key_stride], at most 65,535 chains; `x1` (n_ctr,) int64 counters; `step`
+// null, or one int64 on the device whose low 32 bits are the step word
+// (else `step_host`'s are);
+// `out` (chains, 2 * n_ctr) int64, 16-byte aligned; `launches` one uint64
+// the launch adds 1 to; all device pointers. Returns a CUDA error code.
+extern "C" int threefry_plan_launch(const void* keys, long long key_stride,
+                                    const void* x1, int n_ctr, int chains,
+                                    const void* step, long long step_host,
+                                    void* out, void* launches,
+                                    void* stream) {
+    if (n_ctr == 0 || chains == 0) return 0;
+    const dim3 grid((n_ctr + kPlanThreads - 1) / kPlanThreads, chains);
+    threefry_plan_kernel<<<grid, kPlanThreads, 0, (cudaStream_t)stream>>>(
+        (const long long*)keys, key_stride, (const long long*)x1, n_ctr,
+        (const long long*)step, step_host, (longlong2*)out,
+        (unsigned long long*)launches);
+    return (int)cudaGetLastError();
 }

@@ -41,14 +41,18 @@ from ..data import as_occupancy_data
 from ..ops import icar
 from ..ops.cuda_cg import icar_cg_solve_cuda
 from ..ops.cuda_pg import pg_devroye_cuda
+from ..ops.cuda_rng import threefry_plan
 from ..ops.sites import LOCAL
 from ..posterior import PosteriorParameter
 from . import etasetup
 
 
 #: the hand-written kernels' launch counts (``.launches``, counted on the
-#: card by the kernels themselves, replays of a captured step included)
-KERNEL_COUNTERS = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter)
+#: card by the kernels themselves, replays of a captured step included):
+#: K1, K3 and the Threefry draw plan (one launch a ``rng.DrawPlan`` call
+#: on CUDA keys)
+KERNEL_COUNTERS = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
+                   threefry_plan.counter)
 
 #: update indices of the init draws (step 0 of the init keys) beyond the
 #: common start's 1-4: a reduced-basis eta and the probit site effect

@@ -5,7 +5,10 @@ function behind ``jax.random``'s default keys. It is written here in
 int64 torch ops with explicit 32-bit masks: additions, rotations and xors
 are then exact on any device, and nothing needs a 64-bit multiply-high.
 ``csrc/pg_devroye.cu`` carries the same function as a ``__device__``
-inline, so on the card the kernel and the plain sampler draw the same bits.
+inline, used by two kernels: the Pólya-Gamma kernel K1 draws its
+uniforms with it, and ``threefry_plan_kernel`` computes a
+:class:`DrawPlan`'s whole word plane in one launch on CUDA keys (the
+torch ops above run on CPU keys). Both give the torch ops' bits.
 
 Keys and streams:
 
@@ -32,6 +35,8 @@ Box-Muller (two words each). Gamma draws use Marsaglia-Tsang over
 import math
 
 import torch
+
+from .ops.cuda_rng import threefry_plan
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -106,14 +111,24 @@ def chain_keys(seed, chains, purpose, device='cpu'):
     return torch.stack(threefry2x32(r0, r1, purpose, c), dim=1)
 
 
+def plan_words(keys, x1, step):
+    """(chains, 2 * counters) int64 words in int64 torch ops, on any
+    device: columns 2j and 2j + 1 of row b are the two words of
+    ``threefry(keys[b], (step, x1[j]))``. The plain version of the CUDA
+    kernel ``ops/cuda_rng.py:threefry_plan``; ``step`` an int or a 0-d
+    int64 tensor on the keys' device."""
+    y0, y1 = threefry2x32(keys[:, :1], keys[:, 1:], step, x1[None])
+    return torch.stack([y0, y1], dim=-1).reshape(keys.shape[0], -1)
+
+
 class DrawPlan:
     """All of one step's draws in one Threefry call.
 
     ``counts`` maps update index -> number of 32-bit words. Calling the
     plan with (chain keys, step) returns update index -> (chains, words)
     int64 tensor, the same words :func:`words` gives for each update
-    alone: batching the step's draws into one elementwise pass saves
-    some hundred small launches per update on the card.
+    alone: on CUDA keys the step's draws are one kernel launch
+    (``ops/cuda_rng.py``), on CPU keys one pass of int64 torch ops.
 
     ``tables`` (optional) maps an update index to a 1-D int64 array of
     word indices below its count: that update then returns only those
@@ -154,10 +169,9 @@ class DrawPlan:
         self.x1 = torch.cat(ctrs)
 
     def __call__(self, keys, step):
-        y0, y1 = threefry2x32(
-            keys[:, :1], keys[:, 1:], _step_word(step, keys), self.x1[None]
-        )
-        w = torch.stack([y0, y1], dim=-1).reshape(keys.shape[0], -1)
+        step = _step_word(step, keys)
+        plane = threefry_plan if keys.is_cuda else plan_words
+        w = plane(keys, self.x1, step)
         out = {uid: w[:, a:b] for uid, (a, b) in self.slices.items()}
         out.update({uid: w[:, g] for uid, g in self.gathers.items()})
         return out

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import make_lattice_dataset
+from chip_smoke import HEAD, LARGE, make_lattice_dataset
 from occuspytial_tpu_torch import (
     LogitICARGibbs,
     LogitRSRGibbs,
@@ -27,7 +27,9 @@ from occuspytial_tpu_torch.ops import cg as tcg
 from occuspytial_tpu_torch.ops import polyagamma as tpg
 from occuspytial_tpu_torch.ops.cuda_cg import icar_cg_solve_cuda, k3_operands
 from occuspytial_tpu_torch.ops.cuda_pg import pg_devroye_cuda
+from occuspytial_tpu_torch.ops.cuda_rng import threefry_plan
 from occuspytial_tpu_torch.ops.icar import icar_spectral, lattice_precision
+from occuspytial_tpu_torch.parallel.sharded_stencil import bands
 from occuspytial_tpu_torch.utils import make_data
 
 pytestmark = pytest.mark.cuda
@@ -110,6 +112,167 @@ def test_pg_kernel_lane_table(dev, m):
     assert (rel <= 1e-5).mean() >= 0.999
     with pytest.raises(ValueError):
         pg_devroye_cuda(sub, z_full[:, :m], lanes.to(torch.int32))
+
+
+def _stencil_sampler(**kw):
+    """A logit stencil sampler on the card (20 x 30 lattice, 1 sweep)."""
+    Q, W, X, y, *_ = make_lattice_dataset(20, 30, ns=300, seed=5)
+    return LogitICARGibbs(Q, W, X, y, random_state=4, lattice=(20, 30, 8),
+                          **kw)
+
+
+#: name -> the step plan's word counts (:func:`_cell_plan`)
+_CELL_PLANS = {}
+
+
+def _cell_plan(name, dev):
+    """The step plan's word counts of a benchmark cell's sampler, built on
+    the card: icar1k's is chip_smoke.py's headline problem (1,000 sites),
+    lattice10k's its 100 x 100 stencil lattice."""
+    if name not in _CELL_PLANS:
+        if name == 'icar1k':
+            Q, W, X, y, *_ = make_data(**HEAD)
+            s = LogitICARGibbs(Q, W, X, y, random_state=HEAD['random_state'],
+                               device=dev)
+        else:
+            Q, W, X, y, *_ = make_lattice_dataset(
+                LARGE['rows'], LARGE['cols'], ns=LARGE['ns'],
+                seed=LARGE['seed'], min_v=LARGE['min_v'],
+                max_v=LARGE['max_v'])
+            s = LogitICARGibbs(Q, W, X, y, random_state=LARGE['seed'],
+                               lattice=(LARGE['rows'], LARGE['cols'], 8),
+                               device=dev)
+        _CELL_PLANS[name] = s._plan.counts
+    return _CELL_PLANS[name]
+
+
+def _plan_case(name, dev):
+    """(counts, tables) of a draw plan: the benchmark cells' step plans,
+    odd word counts, and the word tables of the second of two row bands
+    of a 2-D stencil run (``_band_tables``)."""
+    if name in ('icar1k', 'lattice10k'):
+        return _cell_plan(name, dev), None
+    if name == 'odd':
+        return {0: 1, 5: 7, 9: 333, 200: 65}, None
+    s = _stencil_sampler()
+    band = bands(s.lattice, s.data.visit_site, 2)[1]
+    return s._plan.counts, s._band_tables(band)
+
+
+@pytest.mark.parametrize('chains', [1, 64])
+@pytest.mark.parametrize('case', ['icar1k', 'lattice10k', 'odd', 'band'])
+def test_threefry_plan_kernel_is_the_torch_words_bit_for_bit(dev, case,
+                                                             chains):
+    """One launch gives the int64 torch ops' word plane and, through the
+    plan's slices and word tables, every update's words: the step as a
+    Python int and as a 0-d device tensor, below and above 2**32 (its low
+    32 bits count)."""
+    counts, tables = _plan_case(case, dev)
+    plan = rng.DrawPlan(counts, dev, tables)
+    plan_cpu = rng.DrawPlan(counts, 'cpu', tables)
+    keys = rng.chain_keys(2 ** 33 + 7, chains, rng.RUN, dev)
+    for value in (12, 2 ** 32 + 5):
+        want = rng.plan_words(keys.cpu(), plan_cpu.x1, value)
+        want_upd = plan_cpu(keys.cpu(), value)
+        for step in (value, torch.tensor(value, device=dev)):
+            before = threefry_plan.counter.launches
+            assert torch.equal(threefry_plan(keys, plan.x1, step).cpu(),
+                               want)
+            got = plan(keys, step)
+            assert threefry_plan.counter.launches == before + 2
+            assert set(got) == set(counts)
+            for uid, w in got.items():
+                assert torch.equal(w.cpu(), want_upd[uid])
+    # the low 32 bits: step 5 and step 2**32 + 5 draw the same words
+    assert torch.equal(plan(keys, 5)[0], plan(keys, 2 ** 32 + 5)[0])
+
+
+def test_threefry_plan_kernel_in_a_captured_graph(dev):
+    """A captured plan reads the step tensor the graph advances in place:
+    replay t gives the eager words of step 7 + t, and the kernel's
+    counter counts each replay's launch."""
+    plan = rng.DrawPlan(_cell_plan('icar1k', dev), dev)
+    keys = rng.chain_keys(3, 64, rng.RUN, dev)
+    step = torch.full((), 7, dtype=torch.int64, device=dev)
+    plan(keys, step)
+    recorded = threefry_plan.counter.recorded
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = plan(keys, step)
+        step += 1
+    assert threefry_plan.counter.recorded == recorded + 1
+    threefry_plan.counter.launches = 0
+    for t in range(4):
+        graph.replay()
+        want = plan(keys, 7 + t)
+        for uid in got:
+            assert torch.equal(got[uid], want[uid])
+    torch.cuda.synchronize()
+    # the replays' four and the four eager calls
+    assert threefry_plan.counter.launches == 8
+    assert int(step) == 11
+
+
+def test_threefry_plan_kernel_refuses_what_it_does_not_take(dev):
+    keys = rng.chain_keys(3, 4, rng.RUN, dev)
+    x1 = torch.arange(10, device=dev)
+    with pytest.raises(ValueError, match='one CUDA device'):
+        threefry_plan(keys, x1.cpu(), 0)
+    with pytest.raises(ValueError, match='0-d int64'):
+        threefry_plan(keys, x1, torch.tensor(0, dtype=torch.int32,
+                                             device=dev))
+    with pytest.raises(ValueError, match='0-d int64'):
+        threefry_plan(keys, x1, torch.tensor([0], device=dev))
+    with pytest.raises(ValueError, match='contiguous'):
+        threefry_plan(keys, x1[::2], 0)
+
+
+class _Recorded:
+    """A draw plan that keeps a copy of every call's words."""
+
+    def __init__(self, plan):
+        self.plan, self.words = plan, []
+
+    def __call__(self, keys, step):
+        w = self.plan(keys, step)
+        self.words.append({k: v.clone() for k, v in w.items()})
+        return w
+
+
+def test_stencil_steps_draw_the_torch_words_through_the_kernel(dev,
+                                                                monkeypatch):
+    """Eight host-loop steps of the logit stencil sampler with the plan
+    kernel draw, update for update, the words of the same steps with the
+    plan forced onto the int64 torch ops, and the two runs and the
+    captured run give the same draws; the kernel launches once a plan
+    call."""
+    def run(force_torch, eager):
+        s = _stencil_sampler()
+        s._force_eager = eager
+        s._plan = _Recorded(s._plan)
+        with monkeypatch.context() as m:
+            if force_torch:
+                m.setattr(rng, 'threefry_plan', rng.plan_words)
+            before = threefry_plan.counter.launches
+            post = s.sample(8, chains=8, progressbar=False)
+            launches = threefry_plan.counter.launches - before
+        return post, s._plan.words, launches
+
+    post_k, words_k, launches_k = run(False, True)
+    post_t, words_t, launches_t = run(True, True)
+    post_g, _, launches_g = run(False, False)
+    assert len(words_k) == len(words_t) == 8
+    for a, b in zip(words_k, words_t):
+        assert set(a) == set(b)
+        for uid in a:
+            assert torch.equal(a[uid], b[uid])
+    for name in ('alpha', 'beta', 'tau'):
+        np.testing.assert_array_equal(post_k[name], post_t[name])
+        np.testing.assert_array_equal(post_g[name], post_t[name])
+    # the init plan's launch and the steps' (none with the torch path)
+    assert launches_k == 8 + 1 and launches_t == 0
+    # the captured run: 8 replays, the warm-up step and the init plan
+    assert launches_g == 8 + WARM + 1
 
 
 def _cg_system(dev, n, seed=0):
@@ -870,19 +1033,22 @@ def _small_cg_sampler():
 def test_graph_replays_advance_the_step(dev):
     """Each replay draws the next step's words: a run cut into chunks of
     5 (5, 5, 5, 1 replays of the graph captured for the whole run) is the
-    whole run, and K1/K3 count once per replay."""
+    whole run, and K1/K3 and the draw plan count once per replay."""
     s = _small_cg_sampler()
     whole = s.sample(16, chains=4, progressbar=False)
     carry = s.final_carry
     runner = s._graph_runners[(4, ())]
-    assert runner.per_replay == [1, 3]
+    assert runner.per_replay == [1, 3, 1]
     s.scan_chunk = 5
-    before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
+    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
+                threefry_plan.counter)
+    before = [c.launches for c in counters]
     cut = s.sample(16, chains=4, progressbar=False)
     assert s._graph_runners[(4, ())] is runner
-    # the cold-start check ran once; no warm-up: the graph is cached
-    assert (pg_devroye_cuda.counter.launches - before[0],
-            icar_cg_solve_cuda.counter.launches - before[1]) == (16, 48)
+    # the cold-start check ran once; no warm-up: the graph is cached; the
+    # init plan launches once
+    assert [c.launches - b for c, b in zip(counters, before)] \
+        == [16, 48, 16 + 1]
     for name in ('alpha', 'beta', 'tau'):
         np.testing.assert_array_equal(cut[name], whole[name])
     for name, val in carry.states.items():
@@ -971,17 +1137,20 @@ def test_2d_nccl_band_step_is_captured_and_matches_the_host_loop(dev,
     one CUDA graph with its all-reduces inside (in the dense ``'cg'``
     regime with ``cg_impl='pallas'`` K3 runs in that graph too): the
     draws and the final carry are the host loop's (``_force_eager``), bit
-    for bit, and K1/K3 count the warm-up step and ``per_replay`` x
-    ``replays``, plus the parent's cold-start check."""
+    for bit, and K1/K3 and the draw plan count the warm-up step and
+    ``per_replay`` x ``replays``, plus the parent's cold-start check and
+    init plan."""
     from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
 
     Q, W, X, y, *_ = make_lattice_dataset(20, 30, ns=300, seed=5)
     if regime == 'stencil':
-        kw, per_step, cold = dict(lattice=(20, 30, 8)), [1, 0], [1, 0]
+        kw = dict(lattice=(20, 30, 8))
+        per_step, cold = [1, 0, 1], [1, 0, 1]
     else:
         kw = dict(solver='cg', cg_iters=15, cg_impl='pallas')
-        per_step, cold = [1, 3], [1, 1]
-    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter)
+        per_step, cold = [1, 3, 1], [1, 1, 1]
+    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
+                threefry_plan.counter)
     size, runs = 8, {}
     for eager in (False, True):
         s = LogitICARGibbs(Q, W, X, y, random_state=4, **kw)
@@ -1074,7 +1243,7 @@ def test_a_step_captured_with_tracing_off_holds_no_mark(dev, traced):
     block()
     on = s._graph_runners[(4, ())]
     assert on is not off
-    assert on.per_replay == off.per_replay == [1, 3]
+    assert on.per_replay == off.per_replay == [1, 3, 1]
     # step, draws, pg, alpha, z and store; tau, beta_eta, eta_solve and
     # asis a sweep
     spans = 6 + 4 * s.spatial_sweeps

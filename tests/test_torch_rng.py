@@ -6,6 +6,9 @@ right distributions; and the per-chain key derivation must not depend on
 the chain count.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +17,8 @@ import torch
 from jax.extend.random import threefry_2x32
 from scipy import stats
 
-from occuspytial_tpu_torch import rng
+from occuspytial_tpu_torch import _build, rng
+from occuspytial_tpu_torch.ops.cuda_rng import threefry_plan
 
 # the tensors here are small: one intra-op thread is faster than many,
 # and the suite already runs in parallel worker processes
@@ -179,3 +183,69 @@ def test_pg_uniforms_lane_table():
     flat = torch.tensor([0, 6, 12])  # chain 0 col 0, chain 1 col 1, ...
     part = rng.pg_uniforms(sub, 4, 5, lanes=flat, table=table)
     assert torch.equal(part, got.reshape(9, -1)[:, flat])
+
+
+def _no_load(name):
+    raise AssertionError(f'loaded the CUDA library {name!r}')
+
+
+def test_cpu_draw_plan_never_loads_a_cuda_library(monkeypatch):
+    """CPU keys take the int64 torch ops: every plan call, tensor step or
+    not, tabled or not, gives the torch words without loading a kernel."""
+    monkeypatch.setattr(_build, 'load', _no_load)
+    keys = rng.chain_keys(4, 3, rng.RUN)
+    counts = {0: 2, 1: 65, 7: 9}
+    for tables in (None, {1: torch.arange(7, 40)}):
+        plan = rng.DrawPlan(counts, tables=tables)
+        for step in (12, torch.tensor(12), 2 ** 32 + 12):
+            got = plan(keys, step)
+            y0, y1 = rng.threefry2x32(keys[:, :1], keys[:, 1:], 12,
+                                      plan.x1[None])
+            w = torch.stack([y0, y1], dim=-1).reshape(3, -1)
+            assert torch.equal(rng.plan_words(keys, plan.x1, step), w)
+            assert torch.equal(got[0], w[:, :2])
+            assert got[1].shape == (3, 65 if tables is None else 33)
+    assert rng.words(keys, 3, 1, 5).shape == (3, 5)
+
+
+@pytest.mark.parametrize('case', ['int32', 'strided', 'shape', 'cpu',
+                                  'counters', 'chains'])
+def test_threefry_plan_wrapper_refuses_before_any_load(monkeypatch, case):
+    """The kernel's wrapper checks its keys and counters before it loads
+    the library: int64 only, each chain's two words adjacent, (chains,
+    2), at most 65,535 chains, one CUDA device, one contiguous row of
+    counters."""
+    monkeypatch.setattr(_build, 'load', _no_load)
+    keys = rng.chain_keys(4, 5, rng.RUN)
+    x1 = torch.arange(10)
+    error, match = ValueError, 'one CUDA device'
+    if case == 'int32':
+        keys, error, match = keys.to(torch.int32), TypeError, 'int64'
+    elif case == 'strided':
+        keys, match = keys.T.contiguous().T, 'adjacent'  # 5 words apart
+    elif case == 'shape':
+        keys, match = keys.reshape(-1), 'adjacent'
+    elif case == 'counters':
+        x1, match = x1[::2], 'contiguous'
+    elif case == 'chains':
+        # one block row of the grid a chain: at most 65,535
+        keys, match = torch.zeros((65536, 2), dtype=torch.int64), '65535'
+    with pytest.raises(error, match=match):
+        threefry_plan(keys, x1, 0)
+
+
+def test_kernel_threefry_constants_are_the_torch_ones():
+    """``csrc/pg_devroye.cu`` holds one Threefry-2x32 function, with the
+    rotations and the key parity word of :mod:`rng`."""
+    src = (Path(_build.SOURCE_DIR) / 'pg_devroye.cu').read_text()
+    assert len(re.findall(r'void threefry2x32\(', src)) == 1
+    rot = re.search(r'rot\[2\]\[4\] = \{\{([^}]*)\}, \{([^}]*)\}\}', src)
+    assert rot is not None
+    assert tuple(tuple(int(v) for v in g.split(',')) for g in rot.groups()) \
+        == rng._ROTATIONS == ((13, 15, 26, 6), (17, 29, 16, 24))
+    parity = re.search(r'k0 \^ k1 \^ (0x[0-9A-Fa-f]+)u', src)
+    assert parity is not None and int(parity.group(1), 16) == rng._PARITY
+    # both kernels draw with that one function
+    for kernel in ('pg_devroye_kernel', 'threefry_plan_kernel'):
+        assert re.search(kernel + r'\(', src)
+    assert src.count('threefry2x32(k0, k1,') == 2
