@@ -329,7 +329,8 @@ class _ProbitBase(GibbsBase):
             omega_b = self._update_omega_b(s, fixed,
                                            rng.uniform(w[_OMEGA_B], dt))
             s['omega_b'] = omega_b
-            if self.px:
+        if self.px:
+            with tracing.phase('px'):
                 # the collapsed block integrates eps out of this window,
                 # so the move runs on the eps-marginal density
                 s = self._px_scale_move(
@@ -367,7 +368,7 @@ class _ProbitBase(GibbsBase):
                     s['beta'] = self._update_beta(s, omega_b, fixed,
                                                   eps_beta)
             if self.px:
-                with tracing.phase('latent'):
+                with tracing.phase('px'):
                     s = self._px_scale_move(
                         s, fixed, self._px_noise(w[base + _PX], False)
                     )
@@ -472,8 +473,9 @@ class ProbitRSRGibbs(_ProbitBase):
     # precision of the collapsed eta draw.
 
     def _collapsed_factor(self, tau, fixed):
-        a_eta = tau[:, None, None] * fixed['Q_rsr'] + 0.5 * fixed['KTK']
-        return torch.linalg.cholesky_ex(a_eta).L
+        with tracing.phase('rsr_factor'):
+            a_eta = tau[:, None, None] * fixed['Q_rsr'] + 0.5 * fixed['KTK']
+            return torch.linalg.cholesky_ex(a_eta).L
 
     def _update_beta_collapsed(self, state, omega_b, tau, fixed, eps,
                                chol=None):

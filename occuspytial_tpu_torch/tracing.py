@@ -17,11 +17,15 @@ root, opened by the runner (``models/base.py``) around the sampler's
 - ``draws``: the step's Threefry words (``rng.DrawPlan``); the normal and
   gamma transforms of the words count with the update that takes them;
 - ``pg`` (logit): the linear predictors and the Pólya-Gamma draw;
-  ``latent`` (probit): the truncated-normal utilities and the PX moves;
+  ``latent`` (probit): the truncated-normal site and visit utilities;
+  ``px`` (probit): the parameter-expansion scale moves, one before the
+  sweeps and one a sweep;
 - ``tau``, ``beta_eta`` and ``asis``: once a spatial sweep; ``beta_eta``
   holds the blocked update, or the eta and beta draws, and inside it
   ``eta_solve`` the eta solve (K3, the stencil or graph PCG, Cholesky,
-  the eigenbasis or the reduced-basis draw);
+  the eigenbasis or the reduced-basis draw) and, for the probit RSR
+  sampler's collapsed ladder, ``rsr_factor``: the batched Cholesky
+  factor that its beta and eta draws share;
 - ``alpha``, ``z``; ``store``: the step's new state into the captured
   graph's buffers, or the host loop's copies of the draws.
 
@@ -66,11 +70,11 @@ import torch
 from . import _build
 
 #: the phases, ``step`` (the root) first
-PHASES = ('step', 'draws', 'pg', 'latent', 'tau', 'asis', 'beta_eta',
-          'eta_solve', 'alpha', 'z', 'store')
+PHASES = ('step', 'draws', 'pg', 'latent', 'px', 'tau', 'asis',
+          'beta_eta', 'eta_solve', 'rsr_factor', 'alpha', 'z', 'store')
 #: each phase's parent phase
-PARENT = {name: ('beta_eta' if name == 'eta_solve' else 'step')
-          for name in PHASES}
+PARENT = {name: ('beta_eta' if name in ('eta_solve', 'rsr_factor')
+                 else 'step') for name in PHASES}
 PARENT['step'] = None
 
 # the accumulator's layout, as csrc/span_mark.cu reads it

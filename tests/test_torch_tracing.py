@@ -13,6 +13,7 @@ from occuspytial_tpu_torch import (
     LogitICARGibbs,
     LogitRSRGibbs,
     ProbitICARGibbs,
+    ProbitRSRGibbs,
     tracing,
 )
 from occuspytial_tpu_torch.models.base import _same_signature
@@ -38,6 +39,8 @@ SAMPLERS = {
                                        device='cpu'),
     'probit-icar': lambda: ProbitICARGibbs(*_lattice(), random_state=4,
                                            spatial_sweeps=2, device='cpu'),
+    'probit-rsr': lambda: ProbitRSRGibbs(*_head(), random_state=4,
+                                         spatial_sweeps=2, device='cpu'),
 }
 
 
@@ -48,10 +51,15 @@ def _occurrences(s):
             'eta_solve': sweeps, 'alpha': 1, 'z': 1, 'store': 1}
     if s.asis:
         want['asis'] = sweeps
-    if isinstance(s, ProbitICARGibbs):
-        # the site utilities and first PX move, a PX move a sweep, the
-        # visit utilities
-        want['latent'] = 2 + (sweeps if s.px else 0)
+    if isinstance(s, (ProbitICARGibbs, ProbitRSRGibbs)):
+        # the site and the visit utilities; the PX move before the sweeps
+        # and one a sweep
+        want['latent'] = 2
+        if s.px:
+            want['px'] = 1 + sweeps
+        if isinstance(s, ProbitRSRGibbs) and s.collapsed:
+            # the collapsed ladder's shared factor, once a sweep
+            want['rsr_factor'] = sweeps
     else:
         want['pg'] = 1
     return want
@@ -96,6 +104,8 @@ def test_span_tree_and_counts(traced, case):
                        if c['parent'] == name)
         assert children <= entry['sum_s'], name
     assert spans['eta_solve']['parent'] == 'beta_eta'
+    if 'rsr_factor' in spans:
+        assert spans['rsr_factor']['parent'] == 'beta_eta'
     # one gap between two steps of a block, one boundary between blocks
     assert rep['launch_gap']['count'] == BLOCKS * (STEPS - 1)
     assert rep['block_boundary']['count'] == BLOCKS - 1
