@@ -25,9 +25,11 @@ JSON line of per-kernel numbers and, last, ``{"ok": true, "device":
 marker kernel against its plain arithmetic; after the PG kernel (phase
 3), phase 3b holds the Threefry draw-plan kernel bit for bit against the
 torch-op plan at the headline problem's step plan and times both, and
-phase 10 does the same at the 10,000-site stencil sampler's. Every run
-of a sampler on the card checks the draw-plan kernel's launches (one a
-``DrawPlan`` call) beside K1's and K3's. Any failed check raises, so
+phase 10 does the same at the 10,000-site stencil sampler's, and holds
+the stencil PCG kernel against the torch solve at that sampler's eta
+solve and times both. Every run of a sampler on the card checks the
+draw-plan kernel's launches (one a ``DrawPlan`` call) beside K1's and
+K3's, and the lattice runs the stencil PCG's (one a lattice solve). Any failed check raises, so
 the script exits non-zero without that line; it also fails without
 CUDA. ``--stop-after N`` ends after phase N (a quick build-and-check
 run).
@@ -274,6 +276,22 @@ def eager_reference(s, size, chains):
     carry, out = s._run_eager(s.init_carry(chains), size)
     s.final_carry = carry
     return {k: np.moveaxis(v.cpu().numpy(), 0, 1) for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def torch_lattice_solves():
+    """Every lattice solve in torch ops (``ops/stencil.py:
+    cg_solve_plain``), as a band of a 2-D run makes it, not by the stencil
+    PCG kernel: the one-process reference a 1 x 1 mesh is held to bit for
+    bit."""
+    from occuspytial_tpu_torch.ops import stencil
+
+    takes = stencil.takes_kernel
+    stencil.takes_kernel = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        stencil.takes_kernel = takes
 
 
 def report(label, post, size, sec):
@@ -801,13 +819,23 @@ def two_d_phase(dev, card, counters, meshes, regime, graph_built=None):
           f'holds the same alpha, beta and tau, |sum eta| / sum |eta| '
           f'{drift:.2e}, last_solver_resid {s.last_solver_resid:.3e}, max '
           f'|diff| against one process {diff:.3e} (rtol 2e-3, atol 2e-4)')
-    # (b) one rank: the band is the field
+    # (b) one rank: the band is the field. A band solves its lattice in
+    # torch, the one-process sampler by the stencil PCG kernel (equal to
+    # float32 rounding): on the lattice the bit-for-bit reference solves
+    # in torch too
+    want_b, carry_b = ref[LogitICARGibbs], ref_carry[LogitICARGibbs]
+    if not graph:
+        with torch_lattice_solves():
+            s = make(LogitICARGibbs)
+            s.init_carry(1)
+            want_b = eager_reference(s, TWO_D_STEPS, chains)
+            carry_b = s.final_carry
     s_b, post_b, _, ms_b, _ = run(LogitICARGibbs, meshes['gloo1'])
-    same = all(np.array_equal(post_b[k], ref[LogitICARGibbs][k])
+    same = all(np.array_equal(post_b[k], want_b[k])
                for k in ('alpha', 'beta', 'tau'))
     same = same and all(
         torch.equal(s_b.final_carry.states[k], v)
-        for k, v in ref_carry[LogitICARGibbs].states.items())
+        for k, v in carry_b.states.items())
     print(f'    (b) logit, 1 x 1, gloo: draws and final carry '
           f'{"bit-identical" if same else "differ"} to one process')
     check(same, 'a 1 x 1 mesh differs from one process')
@@ -1159,7 +1187,8 @@ def graph_phase(dev, card, paths, lattice):
                    and not e.is_user_annotation
                    and not e.name.startswith(('Memcpy', 'Memset'))]
         seen = [sum(tag in n for n in kernels) / GRAPH_PROFILE_STEPS
-                for tag in ('pg_devroye', 'icar_cg', 'threefry_plan')]
+                for tag in ('pg_devroye', 'icar_cg', 'threefry_plan',
+                            'stencil_pcg')]
         return len(kernels) / GRAPH_PROFILE_STEPS, seen, counted
 
     failed = []
@@ -1189,7 +1218,8 @@ def graph_phase(dev, card, paths, lattice):
             if seen == counted == runner.per_replay:
                 break
             print(f'    {label}: profile {attempt + 1} saw K1, K3, draw '
-                  f'plan {seen} a replay ({per:.1f} kernels), counters '
+                  f'plan, stencil PCG {seen} a replay ({per:.1f} kernels), '
+                  f'counters '
                   f'{counted}')
         if same:
             bits = 'draws and final carry bit-identical'
@@ -1199,7 +1229,8 @@ def graph_phase(dev, card, paths, lattice):
             bits = f'NOT bit-identical, max |diff| {diff:.3e}'
             failed.append(f'{label}: {bits}')
         if not seen == counted == runner.per_replay:
-            failed.append(f'{label}: K1, K3, draw plan a replay by the '
+            failed.append(f'{label}: K1, K3, draw plan, stencil PCG a '
+                          f'replay by the '
                           f'profiler {seen}, '
                           f'by the kernels\' counters {counted}, recorded '
                           f'in the graph {runner.per_replay}')
@@ -1209,7 +1240,7 @@ def graph_phase(dev, card, paths, lattice):
               f'{setup:.3f} s (capture '
               f'{runner.capture_seconds:.3f} s); kernels a replay '
               f'(profiler) {per:.1f}, K1 {seen[0]:g}, K3 {seen[1]:g}, '
-              f'draw plan {seen[2]:g} (counters '
+              f'draw plan {seen[2]:g}, stencil PCG {seen[3]:g} (counters '
               f'{", ".join(f"{c:g}" for c in counted)}; recorded '
               f'{", ".join(map(str, runner.per_replay))})')
     check(not failed, '; '.join(failed))
@@ -1259,7 +1290,7 @@ def nccl_graph_phase(dev, card, counters, nccl, regimes):
         ms = 1e3 * max(float(np.mean(t[2:])) for t in s.rank_step_seconds)
         return s, post, launches, ms
 
-    failed, total = [], [0, 0, 0]
+    failed, total = [], [0] * len(counters)
     untracked = None
     for label, (s0, chains, per_step, cold) in regimes.items():
         s_g, post_g, got_g, ms_g = run(s0, chains, GRAPH_STEPS)
@@ -1290,14 +1321,16 @@ def nccl_graph_phase(dev, card, counters, nccl, regimes):
         if (per_replay != [list(per_step)] * n_cards
                 or replays != [GRAPH_STEPS] * n_cards
                 or got_g != want_g or got_e != want_e):
-            failed.append(f'{label}: K1, K3, plan launches captured {got_g} '
+            failed.append(f'{label}: K1, K3, plan, stencil PCG launches '
+                          f'captured {got_g} '
                           f'(want {want_g}), eager {got_e} (want {want_e}); '
                           f'per replay {per_replay}, replays {replays}')
         capture = max(r['capture_seconds'] for r in runs)
         print(f'    {label}, {chains} chains: {bits}; ms a step (steps '
               f'3-{GRAPH_STEPS}, the slowest rank) eager {ms_e:.3f}, '
               f'captured {ms_g:.3f} ({ms_e / ms_g:.2f}x); capture '
-              f'{capture:.3f} s; K1, K3, plan launches captured {got_g} = '
+              f'{capture:.3f} s; K1, K3, plan, stencil PCG launches '
+              f'captured {got_g} = '
               f'{n_cards} rank(s) x ({GRAPH_STEPS} replays + {warm} warm-up) '
               f'x {per_replay[0]} a replay + {list(cold)} cold-start check '
               f'and init, '
@@ -1331,11 +1364,13 @@ def nccl_graph_phase(dev, card, counters, nccl, regimes):
 
 def large_n_phases(dev, kind, card, counters):
     """Phases 10-12: both ICAR samplers' matrix-free eta regimes on the
-    10,000-site lattice of bench.py configs 5 and 5g. Returns K1's and
-    the draw plan's launches on the stencil and graph logit paths
-    (regime -> (K1, plan)), the four samplers with their chain counts
-    (label -> (sampler, chains)) and phase 10's draw-plan timing
-    (:func:`threefry_plan_times`)."""
+    10,000-site lattice of bench.py configs 5 and 5g. Returns K1's, the
+    draw plan's and the stencil PCG's launches on the stencil and graph
+    logit paths (regime -> (K1, plan, stencil PCG)), the four samplers
+    with their chain counts (label -> (sampler, chains)) and phase 10's
+    draw-plan and stencil PCG timings (:func:`threefry_plan_times`,
+    :func:`stencil_pcg_times`); ``counters`` are K1's, K3's, the draw
+    plan's and the stencil PCG's."""
     import scipy.sparse as sps
     import torch
 
@@ -1370,15 +1405,19 @@ def large_n_phases(dev, kind, card, counters):
                   f'graph layout {g} cg_iters {s.cg_iters}')
             print(f'    graph: {g}')
         print(f'    build seconds (sampler construction) {build:.2f}')
-        post, sec, (pg_n, cg_n, plan_n) = run_timed(
+        post, sec, (pg_n, cg_n, plan_n, solve_n) = run_timed(
             s, LARGE_SIZE, LARGE_BURNIN, chains, counters)
         # one PG and one draw-plan launch a step (warm-up and replays),
-        # plus the cold-start check's PG and the init's plan; no K3
+        # plus the cold-start check's PG and the init's plan; no K3; on
+        # the lattice one stencil PCG launch a step and the check's
         want = LARGE_SIZE + warmup_steps() + 1
         check(pg_n == want, f'{regime} PG launches {pg_n} != {want}')
         check(cg_n == 0, f'{regime} launched the K3 CG')
         check(plan_n == want,
               f'{regime} draw-plan launches {plan_n} != {want}')
+        want_solve = want if regime == 'stencil' else 0
+        check(solve_n == want_solve,
+              f'{regime} stencil PCG launches {solve_n} != {want_solve}')
         check_posterior(post, chains, LARGE_SIZE - LARGE_BURNIN, dims)
         check_state(s.final_carry)
         check(s.last_solver_resid < 0.2,
@@ -1386,18 +1425,21 @@ def large_n_phases(dev, kind, card, counters):
         drift = plane_drift(s.final_carry.states['eta'])
         check(drift < 1e-4, f'{regime} eta off the hyperplane: {drift:.2e}')
         print(f'    PG launches {pg_n}, draw-plan launches {plan_n}, '
+              f'stencil PCG launches {solve_n}, '
               f'last_solver_resid '
               f'{s.last_solver_resid:.3e}, |sum eta| / sum |eta| '
               f'{drift:.2e}')
         report(f'{kind} ({card})', post, LARGE_SIZE, sec)
         posts[regime], samplers[regime] = post, s
-        launches[regime] = (pg_n, plan_n)
+        launches[regime] = (pg_n, plan_n, solve_n)
         return t0
 
     t0 = logit('stencil', '10 LogitICARGibbs stencil, config 5 (100 x 100 '
                           'lattice, 32 chains)')
     plan_times = threefry_plan_times(dev, samplers['stencil'],
                                      LARGE_CHAINS['stencil'])
+    solve_times = stencil_pcg_times(dev, samplers['stencil'],
+                                    LARGE_CHAINS['stencil'])
     done(t0)
     t0 = logit('graph', '11 LogitICARGibbs graph, config 5g (the same '
                         'problem as a sparse Q, 64 chains)')
@@ -1444,7 +1486,11 @@ def large_n_phases(dev, kind, card, counters):
         post, sec, n_launch = run_timed(
             s, PROBIT_LARGE_SIZE, PROBIT_LARGE_BURNIN, PROBIT_LARGE_CHAINS,
             counters)
-        want = [0, 0, PROBIT_LARGE_SIZE + warmup_steps() + init_plans(s)]
+        steps = PROBIT_LARGE_SIZE + warmup_steps()
+        # the lattice solve: one stencil PCG launch a step and the
+        # cold-start check's
+        want = [0, 0, steps + init_plans(s),
+                steps + 1 if regime == 'stencil' else 0]
         check(n_launch == want,
               f'probit {regime} launches {n_launch} != {want}')
         check_posterior(post, PROBIT_LARGE_CHAINS,
@@ -1462,7 +1508,7 @@ def large_n_phases(dev, kind, card, counters):
     worst = mean_parity(probit['stencil'], probit['graph'])
     print(f'    worst mean z-ratio, stencil vs graph {worst:.3f}')
     done(t0)
-    return launches, paths, plan_times
+    return launches, paths, plan_times, solve_times
 
 
 def span_marks_phase(dev):
@@ -1612,6 +1658,61 @@ def threefry_plan_times(dev, sampler, chains):
                 plain_ms_captured=plain_graph, bound_ms=bound, bound_by=by)
 
 
+def stencil_pcg_times(dev, sampler, chains):
+    """The stencil PCG kernel at ``sampler``'s eta solve over ``chains``
+    chains (its ``n_beta + 3`` rows, ``cg_iters`` iterations, the
+    residual): one launch against ``ops/stencil.py:cg_solve_plain`` on
+    the card (1e-4 of the largest entry), both timed eager and replayed
+    from a CUDA graph, with the kernel's bound. Returns its numbers for
+    the report's entry."""
+    import torch
+
+    from occuspytial_tpu_torch.ops import stencil
+    from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
+
+    spec, fixed, n = sampler.lattice, sampler.fixed, sampler.n
+    rows, iters = sampler.n_beta + 3, sampler.cg_iters
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rhs = torch.randn((chains, rows, n), device=dev, generator=gen)
+    args = (rhs, 0.1 * rhs,
+            0.05 + 0.25 * torch.rand((chains, n), device=dev, generator=gen),
+            1.0 + 29.0 * torch.rand(chains, device=dev, generator=gen),
+            iters)
+
+    def kernel():
+        return stencil_pcg_cuda(spec, fixed, *args, return_resid=True)
+
+    def plain():
+        return stencil.cg_solve_plain(spec, fixed, *args, return_resid=True)
+
+    before = stencil_pcg_cuda.counter.launches
+    got, want = kernel(), plain()
+    check(stencil_pcg_cuda.counter.launches == before + 1,
+          'the stencil solve is not one launch')
+    err = float((got[0] - want[0]).abs().max()) / max(
+        1.0, float(want[0].abs().max()))
+    check(err <= 1e-4, f'the stencil PCG kernel differs from torch: {err}')
+    ms = time_ms(kernel, 20)
+    ms_graph = graph_ms(kernel)
+    plain_ms = time_ms(plain, 5)
+    plain_graph = graph_ms(plain)
+    # four side^3 products an apply, iters + 1 applies a field
+    ops = 2.0 * 2 * (spec.rows ** 2 * spec.cols + spec.rows * spec.cols ** 2
+                     ) * (iters + 1) * chains * rows
+    nbytes = 4.0 * n * (3 * chains * rows + chains + 4)
+    bound = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
+    by = 'bytes' if nbytes / PEAK_BYTES >= ops / PEAK_F32 else 'operations'
+    print(f'    stencil PCG: {chains} chains x {rows} rows, {iters} '
+          f'iterations, {ops / 1e9:.2f} GFLOP; kernel {ms:.4f} ms '
+          f'({ms_graph:.4f} in a graph), torch ops {plain_ms:.4f} ms '
+          f'({plain_graph:.4f} in a graph), bound {bound:.4f} ms ({by}); '
+          f'max |diff| / max(1, |x|) {err:.2e}')
+    return dict(chains=chains, rows=rows, iters=iters, ms=ms,
+                ms_captured=ms_graph, plain_ms=plain_ms,
+                plain_ms_captured=plain_graph, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--stop-after', type=int, default=19)
@@ -1669,6 +1770,7 @@ def main():
     )
     from occuspytial_tpu_torch.ops.cuda_pg import pg_devroye_cuda
     from occuspytial_tpu_torch.ops.cuda_rng import threefry_plan
+    from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
     from occuspytial_tpu_torch.utils import make_data
 
     Q, W, X, y, *_ = make_data(**HEAD)
@@ -1982,7 +2084,7 @@ def main():
     runner = main._graph_runners[(CHAINS, ())]
     # K1 and the draw plan once a step: the warm-up step, then one a
     # replay; plus the cold-start solver check's K1 and the init's plan
-    check(runner.per_replay == [1, 0, 1] and runner.length == MAIN_SIZE
+    check(runner.per_replay == [1, 0, 1, 0] and runner.length == MAIN_SIZE
           and runner.replays == MAIN_SIZE,
           f'main path graph: {runner.per_replay} recorded, length '
           f'{runner.length}, {runner.replays} replays')
@@ -2028,7 +2130,7 @@ def main():
     pg_launches_alt = pg_devroye_cuda.counter.launches
     plan_launches_alt = threefry_plan.counter.launches
     alt_runner = alt._graph_runners[(CHAINS, ())]
-    check(alt_runner.per_replay == [1, 3, 1]
+    check(alt_runner.per_replay == [1, 3, 1, 0]
           and alt_runner.replays == ALT_SIZE,
           f'cg_impl=pallas graph: {alt_runner.per_replay} recorded, '
           f'{alt_runner.replays} replays')
@@ -2059,6 +2161,8 @@ def main():
         return
     counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
                 threefry_plan.counter)
+    # with the stencil PCG's: the phases that run a lattice solve
+    counters4 = counters + (stencil_pcg_cuda.counter,)
     kept = NEW_SIZE - NEW_BURNIN
 
     t0 = phase('7 LogitRSRGibbs, config 3 width (n = 1000, q = 100, '
@@ -2148,8 +2252,8 @@ def main():
     }
     if args.stop_after < 10:
         return
-    large_launches, large_paths, plan_large = large_n_phases(
-        dev, kind, card, counters)
+    large_launches, large_paths, plan_large, solve_large = large_n_phases(
+        dev, kind, card, counters4)
     paths.update(large_paths)
     if args.stop_after < 13:
         return
@@ -2182,23 +2286,27 @@ def main():
         graph_phase(dev, card, paths, (Q2, W2, X2, y2))
         if args.stop_after < 19:
             return
-        # label: (sampler, chains, K1, K3 and the draw plan a step, the
-        # cold-start check's K1 and K3 and the init's plans)
+        # label: (sampler, chains, K1, K3, the draw plan and the stencil
+        # PCG a step (a band solves its lattice in torch), the cold-start
+        # check's K1 and K3, and its stencil PCG (the parent solves the
+        # whole field) after the init's plans)
         regimes = {
             'logit stencil': (lattice_2d[LogitICARGibbs],
-                              LARGE_CHAINS['stencil'], (1, 0, 1), (1, 0)),
+                              LARGE_CHAINS['stencil'], (1, 0, 1, 0), (1, 0),
+                              1),
             'logit graph': (graph_2d[LogitICARGibbs], LARGE_CHAINS['graph'],
-                            (1, 0, 1), (1, 0)),
+                            (1, 0, 1, 0), (1, 0), 0),
             "logit 'cg' cg_impl='pallas'": (dense_2d['a'], CHAINS,
-                                            (1, 3, 1), (1, 1)),
-            'logit RSR': (dense_2d['d'], CHAINS, (1, 0, 1), (0, 0)),
+                                            (1, 3, 1, 0), (1, 1), 0),
+            'logit RSR': (dense_2d['d'], CHAINS, (1, 0, 1, 0), (0, 0), 0),
             'probit stencil': (lattice_2d[ProbitICARGibbs],
-                               LARGE_CHAINS['stencil'], (0, 0, 1), (0, 0)),
+                               LARGE_CHAINS['stencil'], (0, 0, 1, 0), (0, 0),
+                               1),
         }
-        regimes = {k: (s, c, step, cold + (init_plans(s),))
-                   for k, (s, c, step, cold) in regimes.items()}
-        nccl_pg, nccl_cg, nccl_plan = nccl_graph_phase(
-            dev, card, counters, meshes['nccl'], regimes)
+        regimes = {k: (s, c, step, cold + (init_plans(s), solve))
+                   for k, (s, c, step, cold, solve) in regimes.items()}
+        nccl_pg, nccl_cg, nccl_plan, _ = nccl_graph_phase(
+            dev, card, counters4, meshes['nccl'], regimes)
 
     t0 = phase('20 report')
     # no single PyTorch call computes either function (a fixed-round
@@ -2252,6 +2360,13 @@ def main():
         launches_2d_nccl=two_d_plan[1], launches_2d_graph=two_d_graph_plan[0],
         launches_2d_dense=dense_plan, launches_2d_captured=nccl_plan,
         headline=plan_head, lattice10k_stencil=plan_large,
+    ))
+    kernels.append(dict(
+        common, name='stencil_pcg (no TPU counterpart)',
+        source='occuspytial_tpu_torch/csrc/stencil_pcg.cu', replaces=None,
+        launches_logit_stencil=large_launches['stencil'][2],
+        launches_logit_graph=large_launches['graph'][2],
+        lattice10k_stencil=solve_large,
     ))
     done(t0)
     print(json.dumps({'kernels': kernels}))

@@ -38,7 +38,7 @@ import torch.distributed as dist
 from .. import rng, tracing
 from .._device import resolve_device, resolve_dtype
 from ..data import as_occupancy_data
-from ..ops import icar
+from ..ops import cuda_stencil, icar, stencil
 from ..ops.cuda_cg import icar_cg_solve_cuda
 from ..ops.cuda_pg import pg_devroye_cuda
 from ..ops.cuda_rng import threefry_plan
@@ -49,10 +49,11 @@ from . import etasetup
 
 #: the hand-written kernels' launch counts (``.launches``, counted on the
 #: card by the kernels themselves, replays of a captured step included):
-#: K1, K3 and the Threefry draw plan (one launch a ``rng.DrawPlan`` call
-#: on CUDA keys)
+#: K1, K3, the Threefry draw plan (one launch a ``rng.DrawPlan`` call on
+#: CUDA keys) and the stencil PCG (one launch a lattice solve on the card)
 KERNEL_COUNTERS = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
-                   threefry_plan.counter)
+                   threefry_plan.counter,
+                   cuda_stencil.stencil_pcg_cuda.counter)
 
 #: update indices of the init draws (step 0 of the init keys) beyond the
 #: common start's 1-4: a reduced-basis eta and the probit site effect
@@ -351,6 +352,12 @@ class GibbsBase:
         # every fixed array moves to the device once, floats in self.dtype
         # (the JAX package's fixed pytree, array for array)
         self.fixed = {k: self._to_device(v) for k, v in self.fixed.items()}
+        if (getattr(self, 'solver', None) == 'stencil'
+                and stencil.takes_kernel(self.lattice, self.device,
+                                         self.dtype)):
+            # the lattice solve's kernel is built here, in set-up, and not
+            # at the first step
+            cuda_stencil.load()
         # index layouts of the visit grid (not model arrays)
         self._visit_site = torch.as_tensor(
             np.asarray(self.data.visit_site, dtype=np.int64),

@@ -13,7 +13,9 @@ lattice_precision`), everything the eta draw needs is expressed on the
   in the 2-D DCT-II basis, two (rows x rows) and two (cols x cols)
   products per application;
 - ``cg_solve`` and ``constrained_mvnorm``: the warm-started PCG of
-  :mod:`.cg` and the constrained draw on top of them.
+  :mod:`.cg` and the constrained draw on top of them. On the card a
+  float32 solve of a lattice that fits one SM (:func:`takes_kernel`) is
+  one launch of the CUDA kernel of :mod:`.cuda_stencil`.
 
 The host-side setup (``degree_grid``, ``shift_matrix``, ``dct_basis``,
 ``symbol_grid``, ``setup``) is numpy and gives the JAX package's arrays.
@@ -36,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import cuda_stencil
 from .cg import _batch, pcg
 from .mvnorm import sum_to_zero
 from .sites import LOCAL
@@ -239,6 +242,16 @@ def precond_apply(spec, fixed, tau, cbar, v, sites=LOCAL):
     return out.reshape(v.shape)
 
 
+def takes_kernel(spec, device, dtype, band=None):
+    """Whether :func:`cg_solve` runs as the CUDA kernel
+    (:func:`.cuda_stencil.stencil_pcg_cuda`): float32 on a CUDA device,
+    the whole field (no ``band``: a band's preconditioner sums over its
+    ranks inside the apply) and a lattice within the kernel's on-chip
+    budget (:func:`.cuda_stencil.fits`)."""
+    return (torch.device(device).type == 'cuda' and dtype == torch.float32
+            and band is None and cuda_stencil.fits(spec.rows, spec.cols))
+
+
 def cg_solve(spec, fixed, rhs, x0, omega, tau, iters, return_resid=False,
              band=None):
     """Solve (tau*Q + diag(omega)) x = rhs matrix-free by DCT-
@@ -248,7 +261,22 @@ def cg_solve(spec, fixed, rhs, x0, omega, tau, iters, return_resid=False,
     (:func:`.cg.pcg`). ``band``: the operators of a band of a 2-D run
     (:class:`..parallel.sharded_stencil.BandOps`), whose arrays are then
     the band's: the same algorithm, its site sums over the band's
-    ranks."""
+    ranks. Where :func:`takes_kernel` holds, one launch of the CUDA
+    kernel (:func:`.cuda_stencil.stencil_pcg_cuda`) does the work of
+    :func:`cg_solve_plain`, which runs every other case."""
+    if takes_kernel(spec, rhs.device, rhs.dtype, band):
+        return cuda_stencil.stencil_pcg_cuda(
+            spec, fixed, rhs, x0, omega, tau, iters,
+            return_resid=return_resid,
+        )
+    return cg_solve_plain(spec, fixed, rhs, x0, omega, tau, iters,
+                          return_resid=return_resid, band=band)
+
+
+def cg_solve_plain(spec, fixed, rhs, x0, omega, tau, iters,
+                   return_resid=False, band=None):
+    """:func:`cg_solve` in torch ops: :func:`.cg.pcg` with
+    :func:`matvec` and :func:`precond_apply`."""
     op, sites = (matvec, LOCAL) if band is None else (band.matvec,
                                                       band.sites)
     t, om = _batch(tau, omega)

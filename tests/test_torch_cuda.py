@@ -22,12 +22,13 @@ from occuspytial_tpu_torch import (
     rng,
     tracing,
 )
-from occuspytial_tpu_torch.models.base import GibbsBase
+from occuspytial_tpu_torch.models.base import KERNEL_COUNTERS, GibbsBase
 from occuspytial_tpu_torch.ops import cg as tcg
 from occuspytial_tpu_torch.ops import polyagamma as tpg
 from occuspytial_tpu_torch.ops.cuda_cg import icar_cg_solve_cuda, k3_operands
 from occuspytial_tpu_torch.ops.cuda_pg import pg_devroye_cuda
 from occuspytial_tpu_torch.ops.cuda_rng import threefry_plan
+from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
 from occuspytial_tpu_torch.ops.icar import icar_spectral, lattice_precision
 from occuspytial_tpu_torch.parallel.sharded_stencil import bands
 from occuspytial_tpu_torch.utils import make_data
@@ -531,6 +532,150 @@ def test_cg_kernel_starved_residual_matches_plain(dev, tau, iters):
     assert bool(((got[2] - want[2]).abs() <= 1e-3 * want[2]).all())
 
 
+# ------------------ the stencil PCG kernel (stencil_pcg) ----------------- #
+
+def _stencil_args(dev, lattice, chains, rows, seed=0):
+    """(spec, fixed, rhs, x0, omega, tau) on the card: a lattice's
+    arrays, a warm start near the right-hand sides, omega and tau at the
+    sampler's scales."""
+    from occuspytial_tpu_torch.ops import stencil as tst
+
+    spec = tst.LatticeSpec(*lattice)
+    fixed = {k: torch.as_tensor(v, device=dev)
+             for k, v in tst.setup(spec).items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rhs = torch.randn((chains, rows, spec.n), device=dev, generator=gen)
+    x0 = 0.1 * torch.randn((chains, rows, spec.n), device=dev,
+                           generator=gen)
+    omega = 0.05 + 0.25 * torch.rand((chains, spec.n), device=dev,
+                                     generator=gen)
+    tau = 1.0 + 29.0 * torch.rand(chains, device=dev, generator=gen)
+    return spec, fixed, rhs, x0, omega, tau
+
+
+@pytest.mark.parametrize('resid', [True, False])
+@pytest.mark.parametrize('iters', [0, 1, 15])
+@pytest.mark.parametrize('rows', [2, 6])
+@pytest.mark.parametrize('lattice', [(10, 12, 4, 1.0), (9, 15, 4, 0.6),
+                                     (20, 30, 8, 1.0), (20, 30, 8, 0.8),
+                                     (100, 100, 8, 1.0)])
+def test_stencil_kernel_matches_the_torch_path(dev, lattice, rows, iters,
+                                               resid):
+    """Rook and queen lattices, rho 1 and below, square and not, up to
+    the kernel's 100 x 100: one launch agrees with the torch solve
+    (``cg_solve_plain``) on the same card to float32 rounding, 1e-4 of
+    the largest entry, and its residual to 1e-3 of itself."""
+    from occuspytial_tpu_torch.ops import stencil as tst
+    from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
+
+    spec, fixed, *args = _stencil_args(dev, lattice, 3, rows)
+    assert tst.takes_kernel(spec, dev, torch.float32)
+    before = stencil_pcg_cuda.counter.launches
+    got = tst.cg_solve(spec, fixed, *args, iters, return_resid=resid)
+    torch.cuda.synchronize()
+    assert stencil_pcg_cuda.counter.launches == before + 1
+    want = tst.cg_solve_plain(spec, fixed, *args, iters,
+                              return_resid=resid)
+    if resid:
+        (got, got_rel), (want, want_rel) = got, want
+        assert got_rel.shape == want_rel.shape == (3,)
+        assert float(((got_rel - want_rel).abs()
+                      / (want_rel + 1e-3)).max()) <= 1e-3
+    assert got.shape == want.shape
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_stencil_kernel_is_bit_reproducible(dev):
+    from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
+
+    spec, fixed, *args = _stencil_args(dev, (100, 100, 8, 1.0), 4, 6)
+    a = stencil_pcg_cuda(spec, fixed, *args, 15, return_resid=True)
+    b = stencil_pcg_cuda(spec, fixed, *args, 15, return_resid=True)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize('lattice', [(20, 30, 8, 0.8), (100, 100, 8, 1.0)])
+def test_stencil_kernel_chain_independence(dev, lattice):
+    """A chain's solution and residual are the same bits among 2 chains
+    and among 3: a block owns one field, its sums in a fixed order."""
+    from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
+
+    spec, fixed, *args = _stencil_args(dev, lattice, 3, 6, seed=2)
+    three = stencil_pcg_cuda(spec, fixed, *args, 15, return_resid=True)
+    two = stencil_pcg_cuda(spec, fixed, *(a[:2] for a in args), 15,
+                           return_resid=True)
+    for u, v in zip(two, three):
+        assert torch.equal(u, v[:2])
+
+
+def test_stencil_kernel_replays_in_a_cuda_graph(dev):
+    """A launch captured in a CUDA graph replays to the bits of an eager
+    launch, on new inputs copied into the captured buffers, and its
+    counter counts ``per_replay`` (1) x replays and the capture none."""
+    from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
+
+    spec, fixed, *args = _stencil_args(dev, (20, 30, 8, 1.0), 4, 6)
+    static = [a.clone() for a in args]
+    stencil_pcg_cuda(spec, fixed, *static, 15, return_resid=True)
+    torch.cuda.synchronize()
+    counter = stencil_pcg_cuda.counter
+    recorded = counter.recorded
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = stencil_pcg_cuda(spec, fixed, *static, 15, return_resid=True)
+    torch.cuda.synchronize()
+    assert counter.recorded == recorded + 1
+    counter.launches = 0
+    for seed in (1, 2, 3):
+        fresh = _stencil_args(dev, (20, 30, 8, 1.0), 4, 6, seed=seed)[2:]
+        for buf, new in zip(static, fresh):
+            buf.copy_(new)
+        graph.replay()
+        want = stencil_pcg_cuda(spec, fixed, *fresh, 15, return_resid=True)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+    # three replays and the three eager launches beside them
+    assert counter.launches == 6
+
+
+def test_stencil_kernel_refuses_what_it_does_not_take(dev):
+    from occuspytial_tpu_torch.ops import stencil as tst
+    from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
+
+    spec, fixed, rhs, x0, omega, tau = _stencil_args(dev, (10, 12, 4, 1.0),
+                                                     2, 2)
+    with pytest.raises(TypeError, match='float32'):
+        stencil_pcg_cuda(spec, fixed, rhs.double(), x0, omega, tau, 3)
+    with pytest.raises(TypeError, match='float32'):
+        stencil_pcg_cuda(spec, {k: v.double() for k, v in fixed.items()},
+                         rhs, x0, omega, tau, 3)
+    with pytest.raises(ValueError, match='CUDA'):
+        stencil_pcg_cuda(spec, fixed, rhs.cpu(), x0.cpu(), omega.cpu(),
+                         tau.cpu(), 3)
+    with pytest.raises(ValueError, match='is on'):
+        stencil_pcg_cuda(spec, fixed, rhs, x0.cpu(), omega, tau, 3)
+    with pytest.raises(ValueError, match='shape'):
+        stencil_pcg_cuda(spec, fixed, rhs, x0[:, :1], omega, tau, 3)
+    with pytest.raises(ValueError, match='rhs'):
+        stencil_pcg_cuda(spec, fixed, rhs[0], x0, omega, tau, 3)
+    with pytest.raises(ValueError, match='negative'):
+        stencil_pcg_cuda(spec, fixed, rhs, x0, omega, tau, -1)
+    big = tst.LatticeSpec(101, 100, 8)
+    with pytest.raises(ValueError, match='exceeds'):
+        stencil_pcg_cuda(big, fixed, rhs, x0, omega, tau, 3)
+    # what the kernel does not take, cg_solve leaves to torch
+    assert not tst.takes_kernel(big, dev, torch.float32)
+    assert not tst.takes_kernel(spec, dev, torch.float64)
+    before = stencil_pcg_cuda.counter.launches
+    got = tst.cg_solve(spec, {k: v.double() for k, v in fixed.items()},
+                       rhs.double(), x0.double(), omega.double(),
+                       tau.double(), 3)
+    assert got.dtype == torch.float64
+    assert stencil_pcg_cuda.counter.launches == before
+
+
 def test_main_path_runs_and_is_reproducible(dev):
     Q, W, X, y, *_ = make_data(n=150, ns=100, p=3, q=2, random_state=10)
     draws = []
@@ -686,10 +831,15 @@ def test_large_n_logit_launches_the_pg_kernel_and_is_reproducible(dev,
         assert s.solver == regime and s.pg_method == 'pallas_packed'
         return s
 
-    before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
+    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
+                stencil_pcg_cuda.counter)
+    before = [c.launches for c in counters]
     post = _run_twice(make, 12, 8)
-    assert pg_devroye_cuda.counter.launches == before[0] + 2 * (12 + WARM + 1)
-    assert icar_cg_solve_cuda.counter.launches == before[1]
+    # the lattice solve is one kernel launch a step and one for the
+    # cold-start check
+    steps = 2 * (12 + WARM + 1)
+    want = [steps, 0, steps if regime == 'stencil' else 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == want
     assert post['beta'].shape == (8, 12, 3)
 
 
@@ -702,9 +852,12 @@ def test_large_n_probit_runs_and_is_reproducible(dev, regime):
           else dict(solver='graph'))
     q_in = sps.csr_matrix(Q) if regime == 'graph' else Q
     before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
+    solves = stencil_pcg_cuda.counter.launches
     _run_twice(lambda: ProbitICARGibbs(q_in, W, X, y, random_state=4, **kw),
                10, 8)
     assert (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches) == before
+    want = 2 * (10 + WARM + 1) if regime == 'stencil' else 0
+    assert stencil_pcg_cuda.counter.launches == solves + want
 
 
 def test_sample_parallel_two_workers_on_one_card(dev):
@@ -810,10 +963,12 @@ def _invariance_cases():
 #: except where a sum over the sites is a torch reduction or a batched
 #: product whose CUDA kernel shape follows the number of rows reduced
 #: together (the 6-row solve stacks: 12 rows against 18): the spectral
-#: CG's products and the stencil and graph solves' inner products. There
-#: the measured bound (NVIDIA H100 80GB HBM3, 700 W;
-#: scripts/torch_chain_invariance.py): alpha and beta within 3.6e-7,
-#: tau within 1.003e-6 of itself; asserted as (rtol, atol).
+#: CG's products, the graph solve's inner products and the logit blocked
+#: update's site sums around the stencil solve (the solve itself is one
+#: kernel with its sums in a fixed order). There the measured bound
+#: (NVIDIA H100 80GB HBM3, 700 W; scripts/torch_chain_invariance.py):
+#: alpha and beta within 3.6e-7, tau within 1.003e-6 of itself; asserted
+#: as (rtol, atol).
 _COUNT_BOUND = {'logit-cg-xla': (2e-6, 1e-6), 'logit-stencil': (2e-6, 1e-6),
                 'logit-graph': (2e-6, 1e-6)}
 
@@ -1038,7 +1193,7 @@ def test_graph_replays_advance_the_step(dev):
     whole = s.sample(16, chains=4, progressbar=False)
     carry = s.final_carry
     runner = s._graph_runners[(4, ())]
-    assert runner.per_replay == [1, 3, 1]
+    assert runner.per_replay == [1, 3, 1, 0]
     s.scan_chunk = 5
     counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
                 threefry_plan.counter)
@@ -1143,14 +1298,15 @@ def test_2d_nccl_band_step_is_captured_and_matches_the_host_loop(dev,
     from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
 
     Q, W, X, y, *_ = make_lattice_dataset(20, 30, ns=300, seed=5)
+    # K1, K3, the draw plan and the stencil PCG: a band solves in torch,
+    # the parent's cold-start check on the whole field by the kernel
     if regime == 'stencil':
         kw = dict(lattice=(20, 30, 8))
-        per_step, cold = [1, 0, 1], [1, 0, 1]
+        per_step, cold = [1, 0, 1, 0], [1, 0, 1, 1]
     else:
         kw = dict(solver='cg', cg_iters=15, cg_impl='pallas')
-        per_step, cold = [1, 3, 1], [1, 1, 1]
-    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
-                threefry_plan.counter)
+        per_step, cold = [1, 3, 1, 0], [1, 1, 1, 0]
+    counters = KERNEL_COUNTERS
     size, runs = 8, {}
     for eager in (False, True):
         s = LogitICARGibbs(Q, W, X, y, random_state=4, **kw)
@@ -1243,7 +1399,7 @@ def test_a_step_captured_with_tracing_off_holds_no_mark(dev, traced):
     block()
     on = s._graph_runners[(4, ())]
     assert on is not off
-    assert on.per_replay == off.per_replay == [1, 3, 1]
+    assert on.per_replay == off.per_replay == [1, 3, 1, 0]
     # step, draws, pg, alpha, z and store; tau, beta_eta, eta_solve and
     # asis a sweep
     spans = 6 + 4 * s.spatial_sweeps

@@ -201,3 +201,45 @@ def test_constrained_mvnorm_matches_jax_and_sums_to_zero(spec_args):
         _t(warm)[None], 15, _t(eps1)[None], _t(eps)[None],
     )
     assert torch.equal(got2, got)
+
+
+# (lattice, device, dtype, band) -> whether the solve is the CUDA kernel
+_DISPATCH = [
+    ((100, 100, 8, 1.0), 'cuda', torch.float32, None, True),
+    ((20, 30, 4, 0.7), 'cuda:0', torch.float32, None, True),
+    ((1, 100, 8, 1.0), 'cuda', torch.float32, None, True),
+    ((100, 100, 8, 1.0), 'cpu', torch.float32, None, False),
+    ((100, 100, 8, 1.0), 'cuda', torch.float64, None, False),
+    ((100, 100, 8, 1.0), 'cuda', torch.float32, 'band', False),
+    ((101, 100, 8, 1.0), 'cuda', torch.float32, None, False),
+    ((100, 101, 4, 1.0), 'cuda', torch.float32, None, False),
+    ((320, 320, 8, 1.0), 'cuda', torch.float32, None, False),
+]
+
+
+@pytest.mark.parametrize('lattice, device, dtype, band, want', _DISPATCH)
+def test_solve_takes_the_kernel_by_device_dtype_band_and_size(
+        lattice, device, dtype, band, want):
+    """``cg_solve`` launches the stencil PCG kernel for a float32 solve of
+    the whole field on a CUDA device whose lattice fits the kernel's
+    on-chip budget (100 x 100 at most), and the torch path otherwise: the
+    CPU, float64, a band of a 2-D run, larger lattices."""
+    spec = tst.LatticeSpec(*lattice)
+    band = object() if band else None
+    assert tst.takes_kernel(spec, torch.device(device), dtype, band) is want
+
+
+def test_cpu_solve_stays_in_torch():
+    """On the CPU ``cg_solve`` is ``cg_solve_plain`` bit for bit and the
+    kernel's wrapper refuses the tensors."""
+    from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
+
+    ps = tst.LatticeSpec(6, 9, 8, 1.0)
+    pfixed = {k: torch.as_tensor(v) for k, v in tst.setup(ps).items()}
+    args = tuple(map(torch.as_tensor, _system(ps.n, 3, 4)))
+    got = tst.cg_solve(ps, pfixed, *args, 5, return_resid=True)
+    want = tst.cg_solve_plain(ps, pfixed, *args, 5, return_resid=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match='CUDA'):
+        stencil_pcg_cuda(ps, pfixed, *args, 5)
