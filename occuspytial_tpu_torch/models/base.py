@@ -38,13 +38,12 @@ import torch.distributed as dist
 from .. import rng, tracing
 from .._device import resolve_device, resolve_dtype
 from ..data import as_occupancy_data
-from ..ops import cuda_stencil, icar, stencil
+from ..ops import cuda_stencil
 from ..ops.cuda_cg import icar_cg_solve_cuda
 from ..ops.cuda_pg import pg_devroye_cuda
 from ..ops.cuda_rng import threefry_plan
 from ..ops.sites import LOCAL
 from ..posterior import PosteriorParameter
-from . import etasetup
 
 
 #: the hand-written kernels' launch counts (``.launches``, counted on the
@@ -352,12 +351,6 @@ class GibbsBase:
         # every fixed array moves to the device once, floats in self.dtype
         # (the JAX package's fixed pytree, array for array)
         self.fixed = {k: self._to_device(v) for k, v in self.fixed.items()}
-        if (getattr(self, 'solver', None) == 'stencil'
-                and stencil.takes_kernel(self.lattice, self.device,
-                                         self.dtype)):
-            # the lattice solve's kernel is built here, in set-up, and not
-            # at the first step
-            cuda_stencil.load()
         # index layouts of the visit grid (not model arrays)
         self._visit_site = torch.as_tensor(
             np.asarray(self.data.visit_site, dtype=np.int64),
@@ -412,62 +405,22 @@ class GibbsBase:
     # configuration (host side, runs once)
     # ------------------------------------------------------------------ #
 
-    #: subclasses set False when they never need the dense precision
-    _needs_dense_q = True
-
-    @property
-    def _ops(self):
-        """The op module of the ICAR samplers' matrix-free eta regime
-        (``ops.stencil`` or ``ops.graph``), a band's operators in a 2-D
-        run, else None."""
-        if self._band_ops is not None:
-            return self._band_ops
-        return etasetup.OPS.get(getattr(self, 'solver', None))
-
-    @property
-    def _spec(self):
-        """The static spec those ops take: the lattice or the graph (None
-        for a sampler with neither)."""
-        if getattr(self, 'solver', None) == 'stencil':
-            return self.lattice
-        return getattr(self, 'graph', None)
-
-    def _verify_spatial_precision(self, Q):
-        """Singularity check (reference gibbs/base.py:166-170). The graph
-        regime skips it (a proper CAR surplus is allowed there, and
-        ``ops/graph.build`` checks the CAR structure); the stencil regime
-        checks zero row sums when rho = 1 instead of a shift-invert
-        ``eigsh``, which is slow at 10k+ sites."""
-        solver = getattr(self, 'solver', None)
-        if solver == 'graph':
-            return
-        if solver == 'stencil':
-            import scipy.sparse as sps
-
-            rowsum = (
-                np.abs(np.asarray(Q.sum(axis=1))).max()
-                if sps.issparse(Q) else np.abs(np.asarray(Q).sum(1)).max()
-            )
-            if self.lattice.rho == 1.0 and rowsum > 1e-8:
-                raise ValueError(
-                    'Spatial precision matrix Q must be singular.'
-                )
-            return
-        icar.verify_spatial_precision(Q)
+    def _configure_field(self, Q, x_np):
+        """Check Q and build the spatial field's fixed arrays
+        (:mod:`.field`)."""
 
     def _configure(self, Q, x_np, hparams):
-        """Build the ``fixed`` dict (reference gibbs/base.py:107-164)."""
-        self._verify_spatial_precision(Q)
+        """Build the ``fixed`` dict (reference gibbs/base.py:107-164),
+        the spatial field's last."""
         f = self.fixed
         f['X'] = x_np
-        if self._needs_dense_q:
-            f['Q'] = icar.to_dense(Q)
         f['W_flat'] = self.data.W_flat
         f['y_flat'] = self.data.y_flat
         f['visit_site'] = np.asarray(self.data.visit_site)
         f['surveyed'] = np.asarray(self.data.surveyed)
         f['obs'] = np.asarray(self.data.obs, dtype=np.float64)
         self._set_hyperparams(hparams)
+        self._configure_field(Q, x_np)
 
     def _set_hyperparams(self, hparams):
         """Hyperparameter defaults (reference gibbs/base.py:177-186)."""
@@ -558,6 +511,15 @@ class GibbsBase:
     def _spatial_from_eta(self, eta):
         return eta
 
+    def _eta_quad(self, eta, fixed):
+        """eta' Q eta per chain, Q the field's precision (:mod:`.field`)."""
+        raise NotImplementedError
+
+    def _update_tau(self, eta, fixed, g):
+        """tau ~ Gamma(shape, 0.5 eta'Q eta + rate) given ``g`` ~
+        Gamma(shape, 1) per chain (reference gibbs/logit.py:206-209)."""
+        return g / (0.5 * self._eta_quad(eta, fixed) + fixed['tau_rate'])
+
     def _site_sum(self, per_visit):
         """Per-site sums (chains, n) of per-visit values (chains,
         total_visits), 0 at unsurveyed sites.
@@ -584,35 +546,9 @@ class GibbsBase:
             f'{self.__class__.__name__} must implement a `_step` method.'
         )
 
-    def _track_resid(self, state, rel):
-        """Fold one eta solve's per-chain relative residual into the
-        running max ``state['solver_resid']`` (kept on the device and
-        checked when :meth:`sample` returns)."""
-        if 'solver_resid' in state:
-            state['solver_resid'] = torch.maximum(
-                state['solver_resid'], rel.to(self.dtype)
-            )
-
     def _check_run_solver_health(self, carry):
-        """Raise if any chain's in-run solver residual max exceeded
-        ``solver_check_tol``; the max is kept on ``self.last_solver_resid``
-        either way."""
-        states = carry.states
-        if 'solver_resid' not in states:
-            return
-        resid = float(torch.max(states['solver_resid']))
-        self.last_solver_resid = resid
-        tol = getattr(self, 'solver_check_tol', None)
-        if tol is not None and resid > tol:
-            raise RuntimeError(
-                f'eta solver ({getattr(self, "solver", "?")!r}, '
-                f'cg_iters={getattr(self, "cg_iters", "?")}) failed to '
-                f'converge during the run: worst per-draw relative '
-                f'residual {resid:.2e} exceeds solver_check_tol='
-                f'{tol:.0e}. The sampled draws may be biased — increase '
-                f'cg_iters (or pass solver_check_tol=None to bypass). '
-                f'The run is resumable from `self.final_carry`.'
-            )
+        """The spatial field's check of the run's solves when a run ends
+        (:meth:`.field.ICARField._check_run_solver_health`); none here."""
 
     # ------------------------------------------------------------------ #
     # sampling loop
@@ -700,8 +636,8 @@ class GibbsBase:
         decided from the configuration alone, before anything runs:
 
         - off a CUDA card (the CPU has no graphs);
-        - with ``pg_method='devroye'``: the plain rejection sampler reads
-          its active set back to the host every round;
+        - where the step reads a value back to the host
+          (:attr:`_step_reads_back`);
         - in a band of a 2-D run (``parallel.sample_parallel_2d``) whose
           ``sites`` group is not NCCL's: gloo stages a CUDA tensor's
           all-reduce through the host, which a capture cannot take;
@@ -714,11 +650,14 @@ class GibbsBase:
         sites = self._sites
         return (
             self.device.type != 'cuda'
-            or getattr(self, 'pg_method', None) == 'devroye'
+            or self._step_reads_back
             or self._force_eager
             or (sites is not LOCAL and (
                 sites.timed or dist.get_backend(sites.group) != 'nccl'))
         )
+
+    #: a step reads a value back to the host, which a capture cannot take
+    _step_reads_back = False
 
     #: True runs the host loop wherever the step could be captured: the
     #: reference a captured run is held against, in one process or in
@@ -730,15 +669,14 @@ class GibbsBase:
     _graph_warmup_steps = 1
 
     #: every attribute a step reads beyond ``fixed`` and its arguments:
-    #: settings, update indices, the draw plan and index layouts, the
-    #: lattice or graph spec and a band's hooks. A subclass adds its own;
-    #: one its instances lack reads as None.
+    #: settings, update indices, the draw plan and index layouts and a
+    #: band's hooks. A subclass adds its own and its spatial field's
+    #: (:data:`.field.SETTINGS`); one its instances lack reads as None.
     _STEP_SETTINGS = (
         'n', 'n_alpha', 'n_beta', 'dtype', 'device', 'spatial_sweeps',
-        'asis', 'asis_sd', 'asis_steps', 'asis_method', 'solver', 'lattice',
-        'graph', 'graph_rank', 'graph_block', 'cg_iters', 'q_dim',
-        '_alpha_update', '_z_update', '_plan', '_visit_site', '_site_idx',
-        '_pad_idx', '_pad_mask', '_sites', '_band_ops', '_pg_lanes',
+        'asis', 'asis_sd', 'asis_steps', 'asis_method', '_alpha_update',
+        '_z_update', '_plan', '_visit_site', '_site_idx', '_pad_idx',
+        '_pad_mask', '_sites', '_band_ops', '_pg_lanes',
     )
 
     def _graph_signature(self, carry):

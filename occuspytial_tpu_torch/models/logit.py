@@ -26,33 +26,18 @@ import torch.nn.functional as F
 from .. import rng, tracing
 from .._device import resolve_dtype
 from ..ops import icar
-from ..ops.cg import icar_cg_solve_spectral
-from ..ops.cuda_cg import icar_cg_solve_cuda, k3_operands
+from ..ops.cuda_cg import k3_operands
 from ..ops.cuda_pg import pg_devroye_cuda
-from ..ops.mvnorm import (
-    lambda_cholesky_solve,
-    precision_mvnorm,
-    rsr_mvnorm,
-    sum_to_zero,
-)
+from ..ops.mvnorm import precision_mvnorm, rsr_mvnorm, sum_to_zero
 from ..ops.polyagamma import pg_devroye, pg_gamma
 from ..ops.sites import lincomb
-from . import etasetup
-from .base import INIT_ETA_BASIS, GibbsBase
+from . import field
+from .base import GibbsBase
+from .field import ICARField, RSRField
 from .interweave import ancillary_tau_move, noise_from_words, noise_words
 
 #: below this site count the dense Cholesky eta draw is the default
 _CG_AUTO_THRESHOLD = 512
-
-
-def auto_graph_rank(n_sites):
-    """Default deflation rank of the graph solver: ~5% of the site
-    count rounded up to a multiple of 64, floored at 64, capped at 512
-    (the JAX package's policy, measured there: the thin deflation
-    products cost little while each step up in rank cuts the fixed-budget
-    residual severalfold). Shared by the logit and probit samplers."""
-    raw = max(64, int(n_sites) // 20)
-    return min(512, ((raw + 63) // 64) * 64)
 
 #: update indices of a step's draws (see _plan); per sweep i the block
 #: starts at 1 + _SWEEP_UPDATES * i
@@ -60,7 +45,7 @@ _SWEEP_UPDATES = 5
 _TAU, _BETA, _EPS1, _NOISE, _ASIS = range(5)
 
 
-class LogitICARGibbs(GibbsBase):
+class LogitICARGibbs(ICARField, GibbsBase):
     """Gibbs sampler using the logit link and the ICAR spatial model.
 
     Same constructor as the JAX package's ``LogitICARGibbs`` plus
@@ -86,9 +71,11 @@ class LogitICARGibbs(GibbsBase):
     deflation basis (default ``dtype``).
     """
 
-    _STEP_SETTINGS = GibbsBase._STEP_SETTINGS + (
+    _STEP_SETTINGS = GibbsBase._STEP_SETTINGS + field.SETTINGS + (
         'pg_method', 'blocked', 'cg_impl', 'eig_dtype',
     )
+    #: the dense arrays whose rows are the sites (see :mod:`..parallel`)
+    _site_rows = ('sqrt_factor',)
 
     def __init__(
         self, Q, W, X, y, hparams=None, random_state=None,
@@ -107,10 +94,6 @@ class LogitICARGibbs(GibbsBase):
                 raise ValueError('spatial_sweeps must be >= 1')
         self.spatial_sweeps = spatial_sweeps
         self.blocked = bool(blocked)
-        self.solver_check_tol = (
-            None if solver_check_tol is None else float(solver_check_tol)
-        )
-        self._solver_checked = False
         self.asis = bool(asis)
         self.asis_sd = float(asis_sd)
         self.asis_steps = int(asis_steps)
@@ -126,31 +109,15 @@ class LogitICARGibbs(GibbsBase):
         if solver not in (None, 'chol', 'cg', 'stencil', 'graph'):
             raise ValueError(f'unknown eta solver: {solver!r}')
         n_sites = np.asarray(X).shape[0]
-        self.solver, self.lattice = etasetup.resolve_solver(
-            solver, lattice, Q, n_sites,
+        self._resolve_field(
+            Q, n_sites, solver, lattice, cg_iters, graph_rank, graph_block,
+            solver_check_tol,
             'cg' if n_sites >= _CG_AUTO_THRESHOLD else 'chol',
         )
-        self.graph_rank = int(
-            auto_graph_rank(n_sites) if graph_rank is None else graph_rank
-        )
-        self.graph_block = graph_block
-        self.graph = None
-        if cg_iters is None:
-            # the JAX package's measured per-regime budgets: 8 for the
-            # spectral CG (cold residual at the float32 floor by 6), 15
-            # for the stencil, 7/10/24 for the graph by deflation rank
-            cg_iters = (
-                8 if self.solver == 'cg' else
-                etasetup.default_cg_iters(self.solver, self.graph_rank)
-            )
-        self.cg_iters = int(cg_iters)
         if self.spatial_sweeps is None:
             # the JAX package's per-regime policy: cg 3, chol 2, and 1
             # for the matrix-free regimes (the eta solve dominates there)
             self.spatial_sweeps = {'cg': 3, 'chol': 2}.get(self.solver, 1)
-        if self.solver in etasetup.OPS:
-            # neither the dense Q nor its eigendecomposition is built
-            self._needs_dense_q = False
         super().__init__(
             Q, W, X, y, hparams, random_state, dtype=dtype, device=device,
         )
@@ -178,15 +145,7 @@ class LogitICARGibbs(GibbsBase):
             counts[base + _TAU] = rng.GAMMA_WORDS
             counts[base + _BETA] = 2 * self.n_beta
             counts[base + _EPS1] = 2 * self.n
-            # the field noise: B eps with B B' = Q (n - 1 columns), or
-            # E eps with E E' = Q_rsr (q columns), or the matrix-free
-            # factor's normals (one per edge, plus one per site where Q
-            # has a diagonal surplus)
-            counts[base + _NOISE] = 2 * (
-                self.fixed['sqrt_factor'].shape[1]
-                if 'sqrt_factor' in self.fixed
-                else self._ops.noise_dim(self._spec)
-            )
+            counts[base + _NOISE] = 2 * self._field_noise_dim
             counts[base + _ASIS] = noise_words(
                 self.asis_method, self.asis_steps
             )
@@ -196,35 +155,23 @@ class LogitICARGibbs(GibbsBase):
         counts[self._z_update] = self.n
         self._plan = rng.DrawPlan(counts, self.device)
 
-    def _configure(self, Q, x_np, hparams):
-        super()._configure(Q, x_np, hparams)
-        if self.solver == 'stencil':
-            self.fixed.update(
-                etasetup.setup_stencil(self.lattice, Q, self.n)
-            )
-            return
-        if self.solver == 'graph':
-            # the banded panels stay in the model dtype (float32): rounding
-            # Q's entries breaks the ICAR zero row sums, and the JAX
-            # package measured a cold residual of 2.3 with bfloat16 panels
-            # against 8.7e-4 in float32
-            self.graph, arrays = etasetup.setup_graph(
-                Q, self.n, self.graph_rank, self.graph_block
-            )
-            self.fixed.update(arrays)
-            return
-        s_eig, u_eig, sqrt_factor = icar.icar_spectral(self.fixed['Q'])
-        self.fixed['sqrt_factor'] = sqrt_factor
+    def _dense_field(self, x_np, s_eig, u_eig, sqrt_factor):
+        """The dense regimes' arrays: the noise factor B, and the
+        eigenbasis the CG solves in."""
+        arrays = {'sqrt_factor': sqrt_factor}
         if self.solver == 'cg':
-            self.fixed['q_eigvals'] = s_eig
-            self.fixed['q_eigvecs'] = u_eig
+            arrays.update(q_eigvals=s_eig, q_eigvecs=u_eig)
+        return arrays
 
     @property
-    def _solves_lambda(self):
-        """Whether eta is drawn on the full site field through solves
-        against tau*Q + diag(omega); a subclass that overrides the eta
-        conditional (RSR: a dense q-dimensional draw) never is."""
-        return type(self)._update_eta is LogitICARGibbs._update_eta
+    def _warm_rows(self):
+        # the blocked solve's rows [Omega X, k, 1, pert] (unblocked: [y, 1])
+        return (self.n_beta + 3) if self.blocked else 2
+
+    @property
+    def _step_reads_back(self):
+        # the plain rejection sampler reads its active set back every round
+        return self.pg_method == 'devroye'
 
     def _pg(self, subkeys, z):
         if self.pg_method == 'gamma':
@@ -232,64 +179,6 @@ class LogitICARGibbs(GibbsBase):
         if self.pg_method in ('pallas', 'pallas_packed'):
             return pg_devroye_cuda(subkeys, z, self._pg_lanes)
         return pg_devroye(subkeys, z, self._pg_lanes)
-
-    def _init_state(self, keys, fixed):
-        state = self._init_common(keys, fixed)
-        if self.solver in ('cg', 'stencil', 'graph'):
-            # warm starts of the blocked solve's rows [Omega X, k, 1,
-            # pert] (unblocked: [y, 1]): in Q's eigenbasis for the CG,
-            # the site-basis solutions for the matrix-free regimes
-            rows = (self.n_beta + 3) if self.blocked else 2
-            chains = keys.shape[0]
-            state['eta_warm'] = torch.zeros(
-                (chains, rows, self.n), dtype=self.dtype, device=self.device
-            )
-            state['solver_resid'] = torch.zeros(
-                chains, dtype=self.dtype, device=self.device
-            )
-        return state
-
-    # ----------------- shared Lambda = tau*Q + diag(omega) ------------- #
-
-    def _lambda_solve(self, rhs, warm, omega, tau, fixed,
-                      return_resid=False):
-        """Solve Lambda X = rhs for (chains, rows, n) stacked rows.
-
-        Returns ``(sol, warm_next[, rel])``: the site-basis solutions, the
-        carry for the next solve's warm start (eigenbasis for the CG) and
-        the per-chain relative residual (0 for the exact Cholesky).
-
-        A band of a 2-D run in a dense regime gathers its chain row's
-        operands (:meth:`..ops.sites.Sites.gather`), makes the unchanged
-        solve on the whole field and keeps its band of the solutions and
-        of the warm start (a band of eigen-coefficients for the CG)."""
-        if self._ops is not None:
-            out = self._ops.cg_solve(
-                self._spec, fixed, rhs, warm, omega, tau, self.cg_iters,
-                return_resid=return_resid,
-            )
-            if return_resid:
-                return out[0], out[0], out[1]
-            return out, out
-        sites = self._sites
-        if self.solver == 'cg':
-            rhs, warm, omega = sites.gather(rhs, warm, omega, label='field')
-            args = (rhs, warm, omega, tau, fixed['q_eigvecs'],
-                    fixed['q_eigvals'], self.cg_iters)
-            if self.cg_impl == 'pallas':
-                out = icar_cg_solve_cuda(
-                    *args, return_resid=return_resid,
-                    operands=fixed.get('k3_operands'),
-                )
-            else:
-                out = icar_cg_solve_spectral(*args,
-                                             return_resid=return_resid)
-            return (sites.band(out[0]), sites.band(out[1])) + out[2:]
-        rhs, omega = sites.gather(rhs, omega, label='field')
-        sol = sites.band(lambda_cholesky_solve(rhs, omega, tau, fixed['Q']))
-        if return_resid:
-            return sol, sol, torch.zeros_like(tau)
-        return sol, sol
 
     def _lambda_noise(self, eps, tau, fixed):
         """sqrt(tau) * B eps with B B' = Q; ``eps`` (chains, n - 1), or
@@ -301,22 +190,15 @@ class LogitICARGibbs(GibbsBase):
             )
         return torch.sqrt(tau)[:, None] * (eps @ fixed['sqrt_factor'].T)
 
-    def solver_residual(self, carry=None):
-        """Max relative residual of the configured eta solver, run cold
-        on the blocked update's right-hand sides at chain 0 of ``carry``
-        (default: a fresh one-chain carry). A converged CG reports well
-        under 1e-3 in float32, a starved one orders of magnitude more.
-        omega is drawn through the configured PG path with fixed zero key
-        words: the check only needs a representative omega."""
-        if carry is None:
-            carry = self.init_carry(chains=1)
-        state = {k: v[:1] for k, v in carry.states.items()}
-        fixed = self.fixed
+    def _residual_system(self, state, fixed):
+        """The blocked update's right-hand sides [Omega X, k, 1] and
+        omega for :meth:`~.field.ICARField.solver_residual`, omega drawn
+        through the configured PG path with fixed zero key words: the
+        check only needs a representative omega."""
         x = fixed['X']
         lin_b = lincomb(state['beta'], x.T) + state['spatial']
         subkeys = torch.zeros((1, 2), dtype=torch.int64, device=self.device)
         omega = self._pg(subkeys, lin_b)
-        tau = state['tau']
         rhs = torch.cat(
             [
                 omega[:, None, :] * x.T,
@@ -325,47 +207,7 @@ class LogitICARGibbs(GibbsBase):
             ],
             dim=1,
         )
-        sol = self._lambda_solve(
-            rhs, torch.zeros_like(rhs), omega, tau, fixed
-        )[0]
-        qsol = (
-            self._ops.matvec(self._spec, fixed, sol) if self._ops is not None
-            else sol @ fixed['Q'].T
-        )
-        resid = tau[:, None, None] * qsol + omega[:, None, :] * sol - rhs
-        rel = torch.linalg.norm(resid, dim=-1) / torch.linalg.norm(
-            rhs, dim=-1
-        )
-        return float(rel.max())
-
-    def init_carry(self, chains=2, start=None):
-        """Build the resumable carry, then run the one-time solver
-        accuracy check (see :meth:`_check_solver_accuracy`)."""
-        carry = super().init_carry(chains, start)
-        self._check_solver_accuracy(carry)
-        return carry
-
-    def _check_solver_accuracy(self, carry):
-        """Once per instance, raise if the cold-start residual of the
-        fixed-budget iterative solver exceeds ``solver_check_tol`` (None
-        skips)."""
-        if (
-            self.solver not in ('cg', 'stencil', 'graph')
-            or self.solver_check_tol is None
-            or self._solver_checked
-            or not self._solves_lambda
-        ):
-            return
-        self._solver_checked = True
-        resid = self.solver_residual(carry)
-        if resid > self.solver_check_tol:
-            raise RuntimeError(
-                f'eta solver ({self.solver!r}, cg_iters={self.cg_iters}) '
-                f'did not converge: cold-start relative residual '
-                f'{resid:.2e} exceeds solver_check_tol='
-                f'{self.solver_check_tol:.0e}. Increase cg_iters (or '
-                f'pass solver_check_tol=None to bypass this check).'
-            )
+        return rhs, omega
 
     def _band_tables(self, band):
         """:class:`..rng.DrawPlan` word tables of a band of a 2-D run
@@ -389,23 +231,6 @@ class LogitICARGibbs(GibbsBase):
         return tables
 
     # -------------------------- update segments ----------------------- #
-
-    def _eta_quad(self, eta, fixed):
-        """eta' Q eta per chain (a band of a 2-D run in a dense regime:
-        its sites' terms of the gathered field's product, summed)."""
-        if self._ops is not None:
-            return self._ops.quad_form(self._spec, fixed, eta)
-        sites = self._sites
-        [field] = sites.gather(eta, label='field')
-        return sites.sum(eta * sites.band(field @ fixed['Q']), dim=-1)
-
-    def _update_tau(self, eta, fixed, g):
-        """tau ~ Gamma(shape, 0.5 eta'Q eta + rate) given ``g`` ~
-        Gamma(shape, 1) per chain (reference gibbs/logit.py:206-209)."""
-        quad = self._eta_quad(eta, fixed)
-        # clamp: float32 cancellation can push the PSD form below 0
-        rate = 0.5 * torch.clamp(quad, min=0.0) + fixed['tau_rate']
-        return g / rate
 
     def _update_beta_eta_blocked(self, state, omega_b, tau, fixed,
                                  eps_beta, eps1, eps_noise):
@@ -431,14 +256,7 @@ class LogitICARGibbs(GibbsBase):
              pert[:, None]],
             dim=1,
         )
-        warm = state.get('eta_warm')
-        if warm is None:
-            warm = torch.zeros_like(rhs)
-        with tracing.phase('eta_solve'):
-            sol, warm_next, rel = self._lambda_solve(
-                rhs, warm, omega_b, tau, fixed, return_resid=True
-            )
-        self._track_resid(state, rel)
+        sol = self._warm_solve(state, rhs, omega_b, tau, fixed)
         g, gk, h, gp = sol[:, :p], sol[:, p], sol[:, p + 1], sol[:, p + 2]
         sites = self._sites
         hsum = sites.sum(h, dim=-1, keepdim=True)
@@ -457,13 +275,7 @@ class LogitICARGibbs(GibbsBase):
         )
         beta = precision_mvnorm(l_vec, s_mat, eps_beta)
         eta = sum_to_zero(gk - lincomb(beta, g) + gp, h, sites)
-        if 'eta_warm' in state:
-            state['eta_warm'] = warm_next
         return beta, eta
-
-    @property
-    def _eta_scale_dim(self):
-        return self._field_n - 1
 
     def _asis_tau(self, s, omega_b, fixed, noise):
         """Sufficient/ancillary tau interweave (Yu & Meng 2011): a move on
@@ -477,7 +289,7 @@ class LogitICARGibbs(GibbsBase):
                                        dim=-1)
         return ancillary_tau_move(
             s, spatial_a, a_lin, c_quad,
-            fixed['tau_shape'] - 0.5 * self._eta_scale_dim,
+            fixed['tau_shape'] - 0.5 * self._eta_dim,
             fixed['tau_rate'], self.asis_method, self.asis_sd,
             self.asis_steps, noise,
         )
@@ -492,16 +304,7 @@ class LogitICARGibbs(GibbsBase):
             eps_noise, tau, fixed
         )
         rhs = torch.stack([y, torch.ones_like(y)], dim=1)
-        warm = state.get('eta_warm')
-        if warm is None:
-            warm = torch.zeros_like(rhs)
-        with tracing.phase('eta_solve'):
-            sol, warm_next, rel = self._lambda_solve(
-                rhs, warm, omega_b, tau, fixed, return_resid=True
-            )
-        if 'eta_warm' in state:
-            state['eta_warm'] = warm_next
-        self._track_resid(state, rel)
+        sol = self._warm_solve(state, rhs, omega_b, tau, fixed)
         eta = sum_to_zero(sol[:, 0], sol[:, 1], self._sites)
         return eta, eta
 
@@ -610,7 +413,7 @@ class LogitICARGibbs(GibbsBase):
         return s
 
 
-class LogitRSRGibbs(LogitICARGibbs):
+class LogitRSRGibbs(RSRField, LogitICARGibbs):
     """Logit sampler with Reduced Spatial Regression (Moran basis).
 
     Port of the JAX package's ``LogitRSRGibbs`` (reference
@@ -623,9 +426,6 @@ class LogitRSRGibbs(LogitICARGibbs):
     the ASIS move. ``solver`` and ``blocked`` are accepted and unused, as
     in the JAX package: no solve against tau*Q + diag(omega) is made.
     """
-
-    # K and Q_rsr = K'QK are the only spatial operators downstream
-    _needs_dense_q = False
 
     def __init__(
         self, Q, W, X, y, hparams=None, random_state=None, r=0.5, q=None,
@@ -641,37 +441,9 @@ class LogitRSRGibbs(LogitICARGibbs):
             pg_method=pg_method, **kwargs,
         )
 
-    def _configure(self, Q, x_np, hparams):
-        GibbsBase._configure(self, Q, x_np, hparams)
-        k_basis, q_rsr = icar.moran_basis(
-            x_np, Q, r=self._rsr_r, num_eigs=self._rsr_q
-        )
-        self.q_dim = q_rsr.shape[0]
-        self.fixed['K'] = k_basis
-        self.fixed['Q_rsr'] = q_rsr
-        self.fixed['sqrt_factor'] = icar.psd_sqrt_factor(q_rsr)
-        if not self.hparams_given:
-            # reference gibbs/logit.py:454-457
-            self.fixed['tau_shape'] = 0.5 + 0.5 * self.q_dim
-
-    def _init_state(self, keys, fixed):
-        """The common start, then eta ~ N(0, 5^2) in the basis (reference
-        gibbs/logit.py:462-466)."""
-        state = self._init_common(keys, fixed)
-        w = rng.words(keys, 0, INIT_ETA_BASIS, 2 * self.q_dim)
-        state['eta'] = 5.0 * rng.normal(w, self.dtype)
-        state['spatial'] = self._spatial_from_eta(state['eta'])
-        return state
-
-    def _spatial_from_eta(self, eta):
-        return eta @ self.fixed['K'].T
-
-    @property
-    def _eta_scale_dim(self):
-        return self.q_dim
-
-    def _eta_quad(self, eta, fixed):
-        return torch.sum(eta * (eta @ fixed['Q_rsr']), dim=-1)
+    def _configure_field(self, Q, x_np):
+        super()._configure_field(Q, x_np)
+        self.fixed['sqrt_factor'] = icar.psd_sqrt_factor(self.fixed['Q_rsr'])
 
     def _update_eta(self, state, omega_b, tau, fixed, eps1, eps2):
         """Reduced-basis eta draw (reference gibbs/logit.py:478-485);

@@ -17,10 +17,13 @@ step, per chain:
 
 As in :mod:`.logit`, every update takes its noise as arguments and the
 step makes it from the chain's counter-based stream, so a test can feed
-the port and the JAX package the same draws. The probit paths run no
-hand-written kernel: their work is elementwise draws and small dense
-products, plain torch ops here as they are plain ``jnp`` in the JAX
-package.
+the port and the JAX package the same draws. The step's draws come from
+the Threefry draw-plan kernel on the card (:mod:`..rng`), and the
+``'stencil'`` regime's eta solve is the stencil PCG kernel there
+(:mod:`..ops.cuda_stencil`); the rest is elementwise draws and small
+dense products, plain torch ops here as they are plain ``jnp`` in the
+JAX package. The spatial field, and with it the eta regime, is
+:mod:`.field`'s, shared with the logit samplers.
 """
 
 import math
@@ -30,7 +33,6 @@ import torch
 from torch.special import log_ndtr
 
 from .. import rng, tracing
-from ..ops import icar
 from ..ops.mvnorm import (
     cholesky_solve,
     constrained_icar_mvnorm_unit,
@@ -38,10 +40,10 @@ from ..ops.mvnorm import (
 )
 from ..ops.sites import lincomb
 from ..ops.truncnorm import truncnorm_sign
-from . import etasetup
-from .base import INIT_EPS, INIT_ETA_BASIS, GibbsBase
+from . import field
+from .base import INIT_EPS, GibbsBase
+from .field import ICARField, RSRField
 from .interweave import ancillary_tau_move, noise_from_words, noise_words
-from .logit import auto_graph_rank
 
 #: update indices of a step's draws: 0 the site utilities, 1 the PX move
 #: before the sweeps; per sweep i the block starts at 2 + _SWEEP_UPDATES *
@@ -66,7 +68,7 @@ class _ProbitBase(GibbsBase):
     otherwise a Metropolis step with ``log g ~ N(0, px_sd^2)``.
     """
 
-    _STEP_SETTINGS = GibbsBase._STEP_SETTINGS + (
+    _STEP_SETTINGS = GibbsBase._STEP_SETTINGS + field.SETTINGS + (
         'collapsed', 'px', 'px_sd', '_px_exact', '_omega_a_update',
     )
 
@@ -123,14 +125,17 @@ class _ProbitBase(GibbsBase):
         counts[self._z_update] = self.n
         self._plan = rng.DrawPlan(counts, self.device)
 
-    #: dimension of eta under scaling (subspace dimension for ICAR)
-    _eta_dim = None
-    #: standard normals one eta draw takes
-    _eta_noise_dim = None
     _start_names = GibbsBase._start_names + ('eps',)
 
-    def _eta_quad(self, eta, fixed):
-        raise NotImplementedError
+    @property
+    def _eta_noise_dim(self):
+        """Standard normals one eta draw takes: the field noise's, and an
+        eta on the sites the n of the utilities' noise too (RSR: q)."""
+        return self._field_noise_dim + (self.n if self._eta_on_sites else 0)
+
+    def _configure(self, Q, x_np, hparams):
+        super()._configure(Q, x_np, hparams)
+        self.fixed['XTX_plus_bprec'] = x_np.T @ x_np + self.fixed['b_prec']
 
     def _band_tables(self, band):
         """:class:`..rng.DrawPlan` word tables of a band of a 2-D run (a
@@ -306,11 +311,6 @@ class _ProbitBase(GibbsBase):
             torch.ones((), dtype=self.dtype, device=self.device), draw,
         )
 
-    def _update_tau(self, eta, fixed, g):
-        """tau ~ Gamma(shape, 0.5 eta'Q eta + rate) given ``g`` ~
-        Gamma(shape, 1) per chain."""
-        return g / (0.5 * self._eta_quad(eta, fixed) + fixed['tau_rate'])
-
     def _collapsed_factor(self, tau, fixed):
         """A factorization both collapsed draws of a sweep share (RSR: the
         q x q Cholesky); None where they need none."""
@@ -395,7 +395,7 @@ class _ProbitBase(GibbsBase):
         return s
 
 
-class ProbitRSRGibbs(_ProbitBase):
+class ProbitRSRGibbs(RSRField, _ProbitBase):
     """Probit sampler with Reduced Spatial Regression spatial effects.
 
     Port of the JAX package's ``ProbitRSRGibbs`` (reference
@@ -404,8 +404,6 @@ class ProbitRSRGibbs(_ProbitBase):
     beta draw uses Woodbury through A = tau Q_rsr + K'K/2, whose one
     Cholesky per chain and sweep also serves the collapsed eta draw.
     """
-
-    _needs_dense_q = False
 
     def __init__(
         self, Q, W, X, y, hparams=None, random_state=None, r=0.5, q=None,
@@ -418,43 +416,12 @@ class ProbitRSRGibbs(_ProbitBase):
             collapsed=collapsed, **kwargs,
         )
 
-    def _configure(self, Q, x_np, hparams):
-        super()._configure(Q, x_np, hparams)
+    def _configure_field(self, Q, x_np):
+        super()._configure_field(Q, x_np)
         f = self.fixed
-        f['XTX_plus_bprec'] = x_np.T @ x_np + f['b_prec']
-        k_basis, q_rsr = icar.moran_basis(
-            x_np, Q, r=self._rsr_r, num_eigs=self._rsr_q
-        )
-        self.q_dim = q_rsr.shape[0]
-        f['K'] = k_basis
-        f['Q_rsr'] = q_rsr
-        f['KTK'] = k_basis.T @ k_basis
-        f['KTX'] = k_basis.T @ x_np
+        f['KTK'] = f['K'].T @ f['K']
+        f['KTX'] = f['K'].T @ x_np
         f['XTX'] = x_np.T @ x_np
-        if not self.hparams_given:
-            f['tau_shape'] = 0.5 + 0.5 * self.q_dim
-
-    def _init_state(self, keys, fixed):
-        state = super()._init_state(keys, fixed)
-        w = rng.words(keys, 0, INIT_ETA_BASIS, 2 * self.q_dim)
-        state['eta'] = 5.0 * rng.normal(w, self.dtype)
-        state['spatial'] = self._spatial_from_eta(state['eta'])
-        return state
-
-    def _spatial_from_eta(self, eta):
-        return eta @ self.fixed['K'].T
-
-    @property
-    def _eta_dim(self):
-        return self.q_dim
-
-    _eta_noise_dim = _eta_dim
-
-    def _eta_quad(self, eta, fixed):
-        # clamp: float32 cancellation can push the PSD form below 0
-        return torch.clamp(
-            torch.sum(eta * (eta @ fixed['Q_rsr']), dim=-1), min=0.0
-        )
 
     def _update_eta(self, state, omega_b, tau, fixed, eps):
         """eta with precision K'K + tau Q_rsr (reference
@@ -511,7 +478,7 @@ class ProbitRSRGibbs(_ProbitBase):
         return eta, eta @ fixed['K'].T
 
 
-class ProbitICARGibbs(_ProbitBase):
+class ProbitICARGibbs(ICARField, _ProbitBase):
     """Probit sampler with the full-rank ICAR spatial model.
 
     Port of the JAX package's ``ProbitICARGibbs``; same constructor plus
@@ -528,6 +495,11 @@ class ProbitICARGibbs(_ProbitBase):
     raises: it needs the eigenbasis).
     """
 
+    #: the dense arrays whose rows are the sites (see :mod:`..parallel`)
+    _site_rows = ('q_eigvecs',)
+    #: the warm start's rows: the [b, 1] solves
+    _warm_rows = 2
+
     def __init__(
         self, Q, W, X, y, hparams=None, random_state=None,
         dtype=torch.float32, solver=None, cg_iters=None, lattice=None,
@@ -537,20 +509,10 @@ class ProbitICARGibbs(_ProbitBase):
         if solver not in (None, 'spectral', 'stencil', 'graph'):
             raise ValueError(f'unknown eta solver: {solver!r}')
         n_sites = int(np.asarray(X).shape[0])
-        self.solver, self.lattice = etasetup.resolve_solver(
-            solver, lattice, Q, n_sites, 'spectral'
+        self._resolve_field(
+            Q, n_sites, solver, lattice, cg_iters, graph_rank, graph_block,
+            solver_check_tol, 'spectral',
         )
-        self.graph_rank = int(
-            auto_graph_rank(n_sites) if graph_rank is None else graph_rank
-        )
-        self.graph_block = graph_block
-        self.graph = None
-        self.cg_iters = int(
-            etasetup.default_cg_iters(self.solver, self.graph_rank)
-            if cg_iters is None else cg_iters
-        )
-        self.solver_check_tol = solver_check_tol
-        self._solver_checked = False
         if self.solver == 'spectral':
             if kwargs.get('spatial_sweeps') is None and n_sites <= 256:
                 # the JAX package's measured policy: at small n the block
@@ -564,65 +526,18 @@ class ProbitICARGibbs(_ProbitBase):
                     'or collapsed=False'
                 )
             kwargs['collapsed'] = False
-            self._needs_dense_q = False
         super().__init__(
             Q, W, X, y, hparams, random_state, dtype=dtype, **kwargs
         )
 
-    def _configure(self, Q, x_np, hparams):
-        super()._configure(Q, x_np, hparams)
-        f = self.fixed
-        f['XTX_plus_bprec'] = x_np.T @ x_np + f['b_prec']
-        if self.solver == 'stencil':
-            f.update(etasetup.setup_stencil(self.lattice, Q, self.n))
-            return
-        if self.solver == 'graph':
-            self.graph, arrays = etasetup.setup_graph(
-                Q, self.n, self.graph_rank, self.graph_block
-            )
-            f.update(arrays)
-            return
-        s_eig, u_eig, _ = icar.icar_spectral(f['Q'])
-        f['q_eigvals'] = s_eig
-        f['q_eigvecs'] = u_eig
-        f['UX'] = u_eig.T @ x_np  # X in Q's eigenbasis (collapsed beta)
-        # boolean: kept out of the float cast onto the device
-        f['eig_mask'] = s_eig > (1e-8 * float(np.max(s_eig)))
-
-    @property
-    def _eta_dim(self):
-        return self._field_n - 1  # eta lives on the sum-to-zero subspace
-
-    @property
-    def _eta_noise_dim(self):
-        """n for the spectral draw; for a matrix-free regime n (the
-        observation noise) plus its field noise (one per edge, plus one
-        per site where Q has a diagonal surplus)."""
-        if self._ops is None:
-            return self.n
-        return self.n + self._ops.noise_dim(self._spec)
-
-    def _eta_quad(self, eta, fixed):
-        sites = self._sites
-        if self._ops is not None:
-            quad = self._ops.quad_form(self._spec, fixed, eta)
-        else:
-            [field] = sites.gather(eta, label='field')
-            quad = sites.sum(eta * sites.band(field @ fixed['Q']), dim=-1)
-        return torch.clamp(quad, min=0.0)
-
-    def _init_state(self, keys, fixed):
-        state = super()._init_state(keys, fixed)
-        if self._ops is not None:
-            # warm start of the [b, 1] solves and the running residual max
-            chains = keys.shape[0]
-            state['eta_warm'] = torch.zeros(
-                (chains, 2, self.n), dtype=self.dtype, device=self.device
-            )
-            state['solver_resid'] = torch.zeros(
-                chains, dtype=self.dtype, device=self.device
-            )
-        return state
+    def _dense_field(self, x_np, s_eig, u_eig, sqrt_factor):
+        """The spectral draws' arrays: Q's eigenbasis, X in it (the
+        collapsed beta) and the mask of its nonzero eigenvalues."""
+        return {
+            'q_eigvals': s_eig, 'q_eigvecs': u_eig, 'UX': u_eig.T @ x_np,
+            # boolean: kept out of the float cast onto the device
+            'eig_mask': s_eig > (1e-8 * float(np.max(s_eig))),
+        }
 
     def _update_eta(self, state, omega_b, tau, fixed, eps):
         """The constrained draw with unit noise: closed form in Q's
@@ -647,61 +562,12 @@ class ProbitICARGibbs(_ProbitBase):
         self._track_resid(state, rel)
         return eta, eta
 
-    # ------------- iterative-solver accuracy guardrail ---------------- #
-
-    def init_carry(self, chains=2, start=None):
-        """Build the resumable carry, then run the one-time solver
-        accuracy check (the logit sampler's guardrail)."""
-        carry = super().init_carry(chains, start)
-        self._check_solver_accuracy(carry)
-        return carry
-
-    def _check_solver_accuracy(self, carry):
-        """Once per instance, raise if the cold-start residual of a
-        matrix-free regime exceeds ``solver_check_tol`` (None skips)."""
-        if (
-            self._ops is None
-            or self.solver_check_tol is None
-            or self._solver_checked
-        ):
-            return
-        self._solver_checked = True
-        resid = self.solver_residual(carry)
-        if resid > self.solver_check_tol:
-            raise RuntimeError(
-                f'eta solver ({self.solver!r}, cg_iters='
-                f'{self.cg_iters}) did not converge: cold-start '
-                f'relative residual {resid:.2e} exceeds '
-                f'solver_check_tol={self.solver_check_tol:.0e}. '
-                'Increase cg_iters (or pass solver_check_tol=None to '
-                'bypass this check).'
-            )
-
-    def solver_residual(self, carry=None):
-        """Max relative residual of a matrix-free eta solve, run cold on
-        the [b, 1] right-hand sides at chain 0 of ``carry`` (default: a
-        fresh one-chain carry): ``max ||(tau*Q + I) x - rhs|| / ||rhs||``.
-        Same contract as :meth:`.logit.LogitICARGibbs.solver_residual`."""
-        if carry is None:
-            carry = self.init_carry(chains=1)
-        state = {k: v[:1] for k, v in carry.states.items()}
-        fixed = self.fixed
+    def _residual_system(self, state, fixed):
+        """The [b, 1] right-hand sides of the eta solve and omega = 1,
+        for :meth:`~.field.ICARField.solver_residual`."""
         b = (state['omega_b'] - lincomb(state['beta'], fixed['X'].T)
              - state['eps'])
-        tau = state['tau']
-        rhs = torch.stack([b, torch.ones_like(b)], dim=1)
-        sol = self._ops.cg_solve(
-            self._spec, fixed, rhs, torch.zeros_like(rhs),
-            torch.ones_like(b), tau, self.cg_iters,
-        )
-        resid = (
-            tau[:, None, None] * self._ops.matvec(self._spec, fixed, sol)
-            + sol - rhs
-        )
-        rel = torch.linalg.norm(resid, dim=-1) / torch.linalg.norm(
-            rhs, dim=-1
-        )
-        return float(rel.max())
+        return torch.stack([b, torch.ones_like(b)], dim=1), torch.ones_like(b)
 
     # In Q's eigenbasis, with eps and eta out, Cov(U'u) = diag(2 + 1/(tau
     # s_i)) on the spatial subspace and 2 on the null direction, so the

@@ -214,28 +214,36 @@ def sample_parallel(
         for bar in bars:
             bar.close()
 
+    sampler.worker_seconds = [r['seconds'] for r in results]
+    return _merge(sampler, [[r] for r in results], set(), burnin)
+
+
+def _merge(sampler, rows, cut, burnin):
+    """The end of a run over processes, from their results chain row by
+    chain row (a row's site ranks joined by :func:`_gather_row`, ``cut``
+    its site-sized entries): sets ``sampler.final_carry`` on the
+    sampler's device, adds the kernel launches to the wrappers' counts,
+    runs the solver health check and returns the posterior."""
+    results = [r for row in rows for r in row]
+
+    def gather(name, key, axis):
+        return np.concatenate(
+            [_gather_row(row, name, cut, key) for row in rows], axis=axis)
+
+    draws = {name: gather(name, 'draws', 1) for name in results[0]['draws']}
     dev = sampler.device
     sampler.final_carry = Carry(
-        torch.as_tensor(np.concatenate([r['keys'] for r in results]),
+        torch.as_tensor(np.concatenate([row[0]['keys'] for row in rows]),
                         device=dev),
-        {name: torch.as_tensor(
-            np.concatenate([r['states'][name] for r in results]),
-            device=dev)
+        {name: torch.as_tensor(gather(name, 'states', 0), device=dev)
          for name in results[0]['states']},
         results[0]['step'],
     )
-    sampler.worker_seconds = [r['seconds'] for r in results]
     for i, counter in enumerate(KERNEL_COUNTERS):
         counter.launches += sum(r['launches'][i] for r in results)
     sampler._check_run_solver_health(sampler.final_carry)
-    merged = {
-        name: np.moveaxis(
-            np.concatenate([r['draws'][name] for r in results], axis=1),
-            0, 1,
-        )[:, burnin:]
-        for name in results[0]['draws']
-    }
-    return PosteriorParameter(merged)
+    return PosteriorParameter({name: np.moveaxis(v, 0, 1)[:, burnin:]
+                               for name, v in draws.items()})
 
 
 # ----------------------- the 2-D (chains x sites) run ------------------- #
@@ -244,9 +252,9 @@ def sample_parallel(
 #: arrays are cut by :func:`_lattice_fixed`,
 #: :func:`.sharded_graph.band_fixed` and :func:`.sharded_dense.band_fixed`)
 _SITE_FIXED = ('X', 'obs', 'surveyed')
-#: state entries laid out (chains, n_sites) (but not the RSR samplers'
-#: eta, see :func:`_site_states`)
-_SITE_STATE = ('z', 'k', 'eta', 'spatial', 'eps', 'omega_b')
+#: state entries laid out (chains, ..., n_sites) (but not an eta off the
+#: sites, see :func:`_site_states`)
+_SITE_STATE = ('z', 'k', 'eta', 'spatial', 'eps', 'omega_b', 'eta_warm')
 
 
 class Mesh2D:
@@ -336,56 +344,24 @@ def mesh_2d(chains=1, sites=None, devices=None, backend=None):
     return Mesh2D(rows, backend)
 
 
-def _is_rsr(sampler):
-    from ..models.logit import LogitRSRGibbs
-    from ..models.probit import ProbitRSRGibbs
-
-    return isinstance(sampler, (LogitRSRGibbs, ProbitRSRGibbs))
-
-
-def _regime(sampler):
-    """How a 2-D run bands ``sampler``'s sites: ``'stencil'`` (lattice
-    rows), ``'graph'`` (a run of sites and a run of blocks), else
-    ``'dense'`` (a run of sites: the dense eta regimes, and the RSR
-    samplers, which take a ``solver`` and never use it)."""
-    if not _is_rsr(sampler) and sampler.solver in ('stencil', 'graph'):
-        return sampler.solver
-    return 'dense'
-
-
-def _dense_rows(sampler):
-    """The fixed arrays of a ``'dense'`` sampler whose rows are the
-    sites, each used only to multiply a site field in or out: the Moran
-    basis K (RSR), the spectral eigenbasis U, else the ICAR noise factor
-    B (``'chol'``, ``'cg'``; the CG's eigenbasis is the solve's, which
-    runs on the whole field)."""
-    if _is_rsr(sampler):
-        return ('K',)
-    if sampler.solver == 'spectral':
-        return ('q_eigvecs',)
-    return ('sqrt_factor',)
-
-
 def _site_states(sampler):
     """Names of the carry entries laid out (chains, ..., n sites): the
-    :data:`_SITE_STATE` entries and ``eta_warm`` (a band of
-    eigen-coefficients for the CG, as in the JAX layout), but not the
-    RSR samplers' eta, (chains, q) in the Moran basis."""
-    names = set(_SITE_STATE) | {'eta_warm'}
-    if _is_rsr(sampler):
-        names.discard('eta')
-    return names
+    :data:`_SITE_STATE` entries (``eta_warm`` a band of
+    eigen-coefficients for the CG, as in the JAX layout), eta only where
+    the sampler's field puts it on the sites (an RSR eta is (chains, q),
+    in the Moran basis)."""
+    return {n for n in _SITE_STATE if n != 'eta' or sampler._eta_on_sites}
 
 
 def _check_2d(sampler, n_site_shards):
     """Raise unless the mesh's ``'sites'`` extent splits the sampler's
     field: the site count and the lattice rows, on a graph the site
     count and (banded) the block count, else the site count."""
-    regime = _regime(sampler)
-    if regime == 'graph':
+    layout = sampler._band_layout
+    if layout == 'graph':
         check_bands(sampler.graph, n_site_shards)
         return
-    if regime == 'dense':
+    if layout == 'dense':
         check_extent(sampler.n, n_site_shards)
         return
     n, rows = sampler.n, sampler.lattice.rows
@@ -422,7 +398,7 @@ def _band_view(sampler, band):
     """The sampler as band ``band`` runs it: the site-indexed fixed
     arrays (:data:`_SITE_FIXED`), its share of the regime's arrays (the
     DCT columns of its rows, :func:`.sharded_graph.band_fixed`, or the
-    site rows of :func:`_dense_rows`), its
+    rows of the field's dense ``_site_rows``), its
     visits and their layouts in band-local site indices, its draw plan
     (the field's words at its sites and edges) and the global lane of
     each column of its Pólya-Gamma draw (its sites, then its visits). The
@@ -434,7 +410,7 @@ def _band_view(sampler, band):
     if isinstance(band, GraphBand):
         f = band_fixed(sampler.graph, sampler.fixed, band)
     elif isinstance(band, SiteBand):
-        f = dense_band_fixed(sampler.fixed, band, _dense_rows(sampler))
+        f = dense_band_fixed(sampler.fixed, band, sampler._site_rows)
     else:
         f = _lattice_fixed(sampler.fixed, band)
     for name in _SITE_FIXED:
@@ -482,10 +458,11 @@ def shard_sampler_2d(sampler, carry, mesh):
     regimes ``'chol'``, ``'cg'`` and ``'spectral'``, and the RSR
     samplers) site rank s takes the s-th contiguous run of sites and its
     rows of the dense operators that only carry a site field in or out
-    (:func:`_dense_rows`); Q, the CG's eigenbasis and the q-space
-    products stay whole, as the JAX layout keeps them replicated; the
-    extent must divide the site count. The chain count must divide by
-    the ``'chains'`` extent."""
+    (the field's ``_site_rows``: the Moran basis K, the spectral
+    eigenbasis U, else the ICAR noise factor B); Q, the CG's eigenbasis
+    and the q-space products stay whole, as the JAX layout keeps them
+    replicated; the extent must divide the site count. The chain count
+    must divide by the ``'chains'`` extent."""
     n_rows, n_sites = mesh.shape['chains'], mesh.shape['sites']
     _check_2d(sampler, n_sites)
     _check_chains(carry.keys.shape[0], n_rows)
@@ -493,11 +470,11 @@ def shard_sampler_2d(sampler, carry, mesh):
     shipped = sampler._moved(cpu)
     shipped.__dict__.pop('final_carry', None)
     visit_site = np.asarray(shipped.data.visit_site)
-    regime = _regime(shipped)
-    if regime == 'graph':
+    layout = shipped._band_layout
+    if layout == 'graph':
         band_list = graph_bands(shipped.graph, shipped.fixed, visit_site,
                                 n_sites)
-    elif regime == 'stencil':
+    elif layout == 'stencil':
         band_list = bands(shipped.lattice, visit_site, n_sites)
     else:
         band_list = site_bands(shipped.n, visit_site, n_sites)
@@ -750,24 +727,6 @@ def sample_parallel_2d(
     if not mesh._held:
         mesh._stop()
 
-    cut = _site_states(sampler)
-    rows = [results[c * n_sites:(c + 1) * n_sites] for c in range(n_rows)]
-    draws = {
-        name: np.concatenate(
-            [_gather_row(row, name, cut, 'draws') for row in rows],
-            axis=1)
-        for name in results[0]['draws']
-    }
-    dev = sampler.device
-    sampler.final_carry = Carry(
-        torch.as_tensor(np.concatenate([row[0]['keys'] for row in rows]),
-                        device=dev),
-        {name: torch.as_tensor(np.concatenate(
-            [_gather_row(row, name, cut, 'states') for row in rows]),
-            device=dev)
-         for name in results[0]['states']},
-        results[0]['step'],
-    )
     sampler.rank_step_seconds = [r['step_seconds'] for r in results]
     sampler.rank_runs = [r['run'] for r in results]
     if timed:
@@ -776,9 +735,5 @@ def sample_parallel_2d(
              for k in r['collective_calls']}
             for r in results
         ]
-    for i, counter in enumerate(KERNEL_COUNTERS):
-        counter.launches += sum(r['launches'][i] for r in results)
-    sampler._check_run_solver_health(sampler.final_carry)
-    merged = {name: np.moveaxis(v, 0, 1)[:, burnin:]
-              for name, v in draws.items()}
-    return PosteriorParameter(merged)
+    rows = [results[c * n_sites:(c + 1) * n_sites] for c in range(n_rows)]
+    return _merge(sampler, rows, _site_states(sampler), burnin)

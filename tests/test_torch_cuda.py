@@ -741,7 +741,7 @@ def test_probit_samplers_run_and_are_reproducible(dev, cls, collapsed):
 def _large_n_ops():
     """(module, spec, CPU fixed tensors) for a queen lattice with rho < 1
     (stencil), and the banded and ELL layouts of a CAR graph on it."""
-    from occuspytial_tpu_torch.models import etasetup
+    from occuspytial_tpu_torch.models import field
     from occuspytial_tpu_torch.ops import graph as tgr
     from occuspytial_tpu_torch.ops import stencil as tst
 
@@ -751,7 +751,7 @@ def _large_n_ops():
                            for k, v in tst.setup(lat).items()}))
     q = lattice_precision(20, 30, 8, 0.9)
     for block in ('auto', 0):
-        spec, arrays = etasetup.setup_graph(q, 600, 32, block)
+        spec, arrays = field.setup_graph(q, 600, 32, block)
         out.append((tgr, spec, {k: torch.as_tensor(v)
                                 for k, v in arrays.items()}))
     assert out[1][1].block == 128 and out[2][1].block == 0
@@ -1076,12 +1076,12 @@ def test_graph_band_operators_on_the_card(dev, block):
     import scipy.sparse as sps
     from test_torch_parallel_2d_graph import band_ops_inputs, run_band_ops
 
-    from occuspytial_tpu_torch.models import etasetup
+    from occuspytial_tpu_torch.models import field
     from occuspytial_tpu_torch.ops import graph as tgr
     from occuspytial_tpu_torch.parallel._spmd import World
 
     q = sps.csr_matrix(lattice_precision(16, 10, 8))
-    spec, arrays = etasetup.setup_graph(q, q.shape[0], 24, block)
+    spec, arrays = field.setup_graph(q, q.shape[0], 24, block)
     inputs = band_ops_inputs(spec)
     iters = 6
     with World(2, ['cuda:0'] * 2) as w:

@@ -22,7 +22,7 @@ import torch
 
 from occuspytial_tpu.ops import graph as jgr
 from occuspytial_tpu_torch.convert import fixed_from_jax
-from occuspytial_tpu_torch.models import etasetup
+from occuspytial_tpu_torch.models import field
 from occuspytial_tpu_torch.ops import graph as tgr
 from occuspytial_tpu_torch.ops.icar import lattice_precision
 
@@ -76,7 +76,7 @@ def _built(case):
     make_q, deflate, block = CASES[case]
     q = make_q()
     jspec, jarr = jgr.build(q, deflate=deflate, block=block)
-    pspec, parr = etasetup.setup_graph(q, q.shape[0], deflate, block)
+    pspec, parr = field.setup_graph(q, q.shape[0], deflate, block)
     jfixed = {k: jnp.asarray(v) for k, v in jarr.items()}
     pfixed = {k: torch.as_tensor(v) for k, v in parr.items()}
     return case, q, jspec, jfixed, pspec, pfixed
@@ -144,7 +144,7 @@ def test_build_rejects_what_jax_rejects():
     with pytest.raises(ValueError, match='covering the'):
         tgr.build(lattice_precision(200, 200, 8), deflate=0, block=128)
     with pytest.raises(ValueError, match='sites'):
-        etasetup.setup_graph(q, 99, 0, 'auto')
+        field.setup_graph(q, 99, 0, 'auto')
 
 
 def test_matvec_and_quad_form_match_jax(built):
@@ -286,7 +286,7 @@ def test_lanczos_basis_spans_the_jax_subspace_and_injects():
     np.testing.assert_array_equal(tgr._bottom_eigs(q, m)[1], vecs_p)
 
     jspec, jarr = jgr.build(q, deflate=m)
-    pspec, parr = etasetup.setup_graph(q, q.shape[0], m, 'auto')
+    pspec, parr = field.setup_graph(q, q.shape[0], m, 'auto')
     assert pspec.block > 0 and pspec.deflate == m
     pfixed = {k: torch.as_tensor(v) for k, v in parr.items()}
     pfixed.update(fixed_from_jax(

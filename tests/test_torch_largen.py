@@ -24,9 +24,14 @@ from occuspytial_tpu.models.logit import LogitICARGibbs as JaxLogit
 from occuspytial_tpu.models.probit import ProbitICARGibbs as JaxProbit
 from occuspytial_tpu.ops.icar import lattice_precision as jlattice
 from occuspytial_tpu.ops.polyagamma import pg_devroye as jpg
-from occuspytial_tpu_torch import LogitICARGibbs, ProbitICARGibbs
+from occuspytial_tpu_torch import (
+    LogitICARGibbs,
+    LogitRSRGibbs,
+    ProbitICARGibbs,
+    ProbitRSRGibbs,
+)
 from occuspytial_tpu_torch.convert import carry_from_jax
-from occuspytial_tpu_torch.models.etasetup import GRAPH_AUTO_THRESHOLD
+from occuspytial_tpu_torch.models.field import GRAPH_AUTO_THRESHOLD
 
 torch.set_num_threads(1)
 
@@ -280,6 +285,44 @@ def test_cold_start_check_raises_when_starved(family):
         cls(_q('stencil'), W, X, y, lattice=(ROWS, COLS, 4), device='cpu')
     with pytest.raises(ValueError, match='requires the `lattice`'):
         cls(_q('stencil'), W, X, y, solver='stencil', device='cpu')
+
+
+@pytest.mark.parametrize('family,regime', [
+    ('logit', 'cg'), ('logit', 'stencil'), ('logit', 'graph'),
+    ('probit', 'stencil'), ('probit', 'graph'), ('logit', 'rsr'),
+    ('probit', 'rsr'),
+])
+def test_both_links_share_one_field_policy(family, regime):
+    """Both ICAR samplers resolve a matrix-free regime alike (solver,
+    cg_iters, graph_rank, from the one spatial field), and a starved
+    iterative solve trips the same cold-start check in either link; an
+    RSR sampler never runs the check, however starved its settings."""
+    _, W, X, y = _data()[:4]
+    if regime == 'rsr':
+        cls = {'logit': LogitRSRGibbs, 'probit': ProbitRSRGibbs}[family]
+        s = cls(_q('stencil'), W, X, y, random_state=1, q=12,
+                device='cpu')
+        s.solver, s.cg_iters, s.solver_check_tol = 'cg', 1, 1e-12
+        carry = s.init_carry(1)
+        assert 'solver_resid' not in carry.states
+        assert not getattr(s, '_solver_checked', False)
+        assert not s._solves_lambda and s._band_layout == 'dense'
+        return
+    if regime != 'cg':
+        logit, probit = (_pair(f, regime)[1] for f in ('logit', 'probit'))
+        assert (logit.solver, logit.cg_iters, logit.graph_rank) == \
+            (probit.solver, probit.cg_iters, probit.graph_rank)
+        assert logit._band_layout == probit._band_layout == regime
+    kw = dict(REGIMES.get(regime, {'solver': regime}), cg_iters=1,
+              solver_check_tol=1e-6)
+    if regime == 'graph':
+        kw['graph_rank'] = 0
+    starved = FAMILIES[family][1](_q(regime), W, X, y, random_state=1,
+                                  device='cpu', **kw)
+    with pytest.raises(RuntimeError, match=rf"^eta solver \('{regime}', "
+                       r'cg_iters=1\) did not converge: cold-start'):
+        starved.init_carry(1)
+    assert starved._solver_checked
 
 
 def test_probit_collapsed_raises_for_the_iterative_regimes():

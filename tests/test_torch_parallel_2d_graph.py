@@ -27,7 +27,7 @@ from test_torch_parallel_2d import DATA
 
 from occuspytial_tpu_torch import LogitICARGibbs, ProbitICARGibbs
 from occuspytial_tpu_torch import diagnostics as dg
-from occuspytial_tpu_torch.models import etasetup
+from occuspytial_tpu_torch.models import field
 from occuspytial_tpu_torch.ops import graph as tgr
 from occuspytial_tpu_torch.parallel import (
     mesh_2d,
@@ -207,7 +207,7 @@ def test_band_operators_match_jax_and_the_field(world2, block):
     from occuspytial_tpu.ops import graph as jgr
 
     q = DATA[0]
-    spec, arrays = etasetup.setup_graph(Q_SPARSE, q.shape[0], 24, block)
+    spec, arrays = field.setup_graph(Q_SPARSE, q.shape[0], 24, block)
     assert spec.block == block and (not block or spec.n_pad == 256)
     jspec, jarr = jgr.build(Q_SPARSE, deflate=24, block=block)
     jfx = {k: jnp.asarray(a) for k, a in jarr.items()}

@@ -32,7 +32,7 @@ from occuspytial_tpu_torch import (
     ProbitRSRGibbs,
     rng,
 )
-from occuspytial_tpu_torch.models.base import GibbsBase, _same_signature
+from occuspytial_tpu_torch.models.base import _same_signature
 from occuspytial_tpu_torch.utils import make_data
 
 torch.set_num_threads(1)
@@ -340,7 +340,7 @@ def test_graph_signature_follows_the_settings_the_step_reads():
     assert same()
     s.cg_iters = 9
     assert not same()
-    s.cg_iters = sig[0][GibbsBase._STEP_SETTINGS.index('cg_iters')]
+    s.cg_iters = sig[0][s._STEP_SETTINGS.index('cg_iters')]
     assert same()
     s.pg_method = 'gamma'
     assert not same()
