@@ -27,9 +27,13 @@ marker kernel against its plain arithmetic; after the PG kernel (phase
 torch-op plan at the headline problem's step plan and times both, and
 phase 10 does the same at the 10,000-site stencil sampler's, and holds
 the stencil PCG kernel against the torch solve at that sampler's eta
-solve and times both. Every run of a sampler on the card checks the
-draw-plan kernel's launches (one a ``DrawPlan`` call) beside K1's and
-K3's, and the lattice runs the stencil PCG's (one a lattice solve). Any failed check raises, so
+solve and times both; phase 9 holds the collapsed RSR kernel against
+the torch path at the benchmark cell's sweep (256 chains, q = 128) and
+times both and the library calls. Every run of a sampler on the card
+checks the draw-plan kernel's launches (one a ``DrawPlan`` call) beside
+K1's and K3's, the lattice runs the stencil PCG's (one a lattice
+solve), and phase 9 the collapsed RSR kernel's (one a collapsed
+sweep). Any failed check raises, so
 the script exits non-zero without that line; it also fails without
 CUDA. ``--stop-after N`` ends after phase N (a quick build-and-check
 run).
@@ -1188,7 +1192,7 @@ def graph_phase(dev, card, paths, lattice):
                    and not e.name.startswith(('Memcpy', 'Memset'))]
         seen = [sum(tag in n for n in kernels) / GRAPH_PROFILE_STEPS
                 for tag in ('pg_devroye', 'icar_cg', 'threefry_plan',
-                            'stencil_pcg')]
+                            'stencil_pcg', 'collapsed_rsr')]
         return len(kernels) / GRAPH_PROFILE_STEPS, seen, counted
 
     failed = []
@@ -1218,7 +1222,8 @@ def graph_phase(dev, card, paths, lattice):
             if seen == counted == runner.per_replay:
                 break
             print(f'    {label}: profile {attempt + 1} saw K1, K3, draw '
-                  f'plan, stencil PCG {seen} a replay ({per:.1f} kernels), '
+                  f'plan, stencil PCG, collapsed RSR {seen} a replay '
+                  f'({per:.1f} kernels), '
                   f'counters '
                   f'{counted}')
         if same:
@@ -1229,8 +1234,8 @@ def graph_phase(dev, card, paths, lattice):
             bits = f'NOT bit-identical, max |diff| {diff:.3e}'
             failed.append(f'{label}: {bits}')
         if not seen == counted == runner.per_replay:
-            failed.append(f'{label}: K1, K3, draw plan, stencil PCG a '
-                          f'replay by the '
+            failed.append(f'{label}: K1, K3, draw plan, stencil PCG, '
+                          f'collapsed RSR a replay by the '
                           f'profiler {seen}, '
                           f'by the kernels\' counters {counted}, recorded '
                           f'in the graph {runner.per_replay}')
@@ -1240,7 +1245,8 @@ def graph_phase(dev, card, paths, lattice):
               f'{setup:.3f} s (capture '
               f'{runner.capture_seconds:.3f} s); kernels a replay '
               f'(profiler) {per:.1f}, K1 {seen[0]:g}, K3 {seen[1]:g}, '
-              f'draw plan {seen[2]:g}, stencil PCG {seen[3]:g} (counters '
+              f'draw plan {seen[2]:g}, stencil PCG {seen[3]:g}, collapsed '
+              f'RSR {seen[4]:g} (counters '
               f'{", ".join(f"{c:g}" for c in counted)}; recorded '
               f'{", ".join(map(str, runner.per_replay))})')
     check(not failed, '; '.join(failed))
@@ -1321,7 +1327,8 @@ def nccl_graph_phase(dev, card, counters, nccl, regimes):
         if (per_replay != [list(per_step)] * n_cards
                 or replays != [GRAPH_STEPS] * n_cards
                 or got_g != want_g or got_e != want_e):
-            failed.append(f'{label}: K1, K3, plan, stencil PCG launches '
+            failed.append(f'{label}: K1, K3, plan, stencil PCG, collapsed '
+                          f'RSR launches '
                           f'captured {got_g} '
                           f'(want {want_g}), eager {got_e} (want {want_e}); '
                           f'per replay {per_replay}, replays {replays}')
@@ -1329,7 +1336,8 @@ def nccl_graph_phase(dev, card, counters, nccl, regimes):
         print(f'    {label}, {chains} chains: {bits}; ms a step (steps '
               f'3-{GRAPH_STEPS}, the slowest rank) eager {ms_e:.3f}, '
               f'captured {ms_g:.3f} ({ms_e / ms_g:.2f}x); capture '
-              f'{capture:.3f} s; K1, K3, plan, stencil PCG launches '
+              f'{capture:.3f} s; K1, K3, plan, stencil PCG, collapsed RSR '
+              f'launches '
               f'captured {got_g} = '
               f'{n_cards} rank(s) x ({GRAPH_STEPS} replays + {warm} warm-up) '
               f'x {per_replay[0]} a replay + {list(cold)} cold-start check '
@@ -1713,6 +1721,70 @@ def stencil_pcg_times(dev, sampler, chains):
                 max_abs_err=err)
 
 
+def collapsed_rsr_times(dev):
+    """The collapsed RSR kernel at the benchmark cell's shapes (1,000
+    sites, p = 3, q = 128, 256 chains) against the torch path it replaces
+    (the sampler's ``_collapsed_factor``, ``_update_beta_collapsed`` and
+    ``_update_eta_collapsed``; 1e-4 of the largest entry), each replayed
+    from a CUDA graph, with the bound of ``rsr_factor.roofline`` and the
+    library calls of the same factor and solves (cuSOLVER's potrf,
+    cuBLAS's trsm) as ``library_ms``. Returns its numbers for the
+    report's entry."""
+    import torch
+
+    from occuspytial_tpu_torch import ProbitRSRGibbs
+    from occuspytial_tpu_torch.ops import cuda_rsr
+    from occuspytial_tpu_torch.ops.mvnorm import cholesky_solve
+
+    Q, W, X, y, *_ = make_lattice_dataset(40, 25, ns=500, seed=7)
+    s = ProbitRSRGibbs(Q, W, X, y, random_state=4, q=128, device=dev)
+    f, chains, q, p = s.fixed, 256, s.q_dim, s.n_beta
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tau = 0.2 + 40.0 * torch.rand(chains, device=dev, generator=gen)
+    u = 1.5 * torch.randn((chains, s.n), device=dev, generator=gen)
+    eb = torch.randn((chains, p), device=dev, generator=gen)
+    ee = torch.randn((chains, q), device=dev, generator=gen)
+    ku, xu = u @ f['K'], u @ f['X']
+    rhs = torch.cat([f['KTX'].expand(chains, q, p), ku[..., None]], -1)
+
+    def kernel():
+        return cuda_rsr.collapsed_rsr_cuda(tau, ku, xu, eb, ee, f)
+
+    def plain():
+        chol = s._collapsed_factor(tau, f)
+        beta = s._update_beta_collapsed({}, u, tau, f, eb, chol)
+        return beta, s._update_eta_collapsed({'beta': beta}, u, tau, f, ee,
+                                              chol)[0]
+
+    def library():
+        chol = s._collapsed_factor(tau, f)
+        return (cholesky_solve(rhs, chol), cholesky_solve(ku[..., None], chol),
+                torch.linalg.solve_triangular(chol.mT, ee[..., None],
+                                              upper=True))
+
+    before = cuda_rsr.collapsed_rsr_cuda.counter.launches
+    got, want = kernel(), plain()
+    check(cuda_rsr.collapsed_rsr_cuda.counter.launches == before + 1,
+          'the collapsed RSR sweep is not one launch')
+    err = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+              for g, w in zip(got, want))
+    check(err <= 1e-4, f'the collapsed RSR kernel differs from torch: {err}')
+    blocks = cuda_rsr.load().collapsed_rsr_blocks_per_sm()
+    ms, plain_ms, lib_ms = (graph_ms(fn) for fn in (kernel, plain, library))
+    ops = 2.0 * chains * (q ** 3 / 3 + (p + 2) * q * q + q * q / 2)
+    nbytes = 4.0 * chains * (2 * q * q + 2 * (p + 3) * q)
+    bound = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
+    by = 'bytes' if nbytes / PEAK_BYTES >= ops / PEAK_F32 else 'operations'
+    print(f'    collapsed RSR: {chains} chains, q = {q}, p = {p}, {blocks} '
+          f'blocks an SM; in a graph kernel {ms:.4f} ms, torch path '
+          f'{plain_ms:.4f} ms, potrf + trsm {lib_ms:.4f} ms, bound '
+          f'{bound:.4f} ms ({by}); max |diff| / max(1, |x|) {err:.2e}')
+    return dict(chains=chains, q=q, p=p, blocks_per_sm=blocks,
+                ms_captured=ms, plain_ms_captured=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--stop-after', type=int, default=19)
@@ -1770,6 +1842,7 @@ def main():
     )
     from occuspytial_tpu_torch.ops.cuda_pg import pg_devroye_cuda
     from occuspytial_tpu_torch.ops.cuda_rng import threefry_plan
+    from occuspytial_tpu_torch.ops.cuda_rsr import collapsed_rsr_cuda
     from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
     from occuspytial_tpu_torch.utils import make_data
 
@@ -2084,7 +2157,7 @@ def main():
     runner = main._graph_runners[(CHAINS, ())]
     # K1 and the draw plan once a step: the warm-up step, then one a
     # replay; plus the cold-start solver check's K1 and the init's plan
-    check(runner.per_replay == [1, 0, 1, 0] and runner.length == MAIN_SIZE
+    check(runner.per_replay == [1, 0, 1, 0, 0] and runner.length == MAIN_SIZE
           and runner.replays == MAIN_SIZE,
           f'main path graph: {runner.per_replay} recorded, length '
           f'{runner.length}, {runner.replays} replays')
@@ -2130,7 +2203,7 @@ def main():
     pg_launches_alt = pg_devroye_cuda.counter.launches
     plan_launches_alt = threefry_plan.counter.launches
     alt_runner = alt._graph_runners[(CHAINS, ())]
-    check(alt_runner.per_replay == [1, 3, 1, 0]
+    check(alt_runner.per_replay == [1, 3, 1, 0, 0]
           and alt_runner.replays == ALT_SIZE,
           f'cg_impl=pallas graph: {alt_runner.per_replay} recorded, '
           f'{alt_runner.replays} replays')
@@ -2163,6 +2236,8 @@ def main():
                 threefry_plan.counter)
     # with the stencil PCG's: the phases that run a lattice solve
     counters4 = counters + (stencil_pcg_cuda.counter,)
+    # with the collapsed RSR sweep's: every kernel (KERNEL_COUNTERS)
+    counters5 = counters4 + (collapsed_rsr_cuda.counter,)
     kept = NEW_SIZE - NEW_BURNIN
 
     t0 = phase('7 LogitRSRGibbs, config 3 width (n = 1000, q = 100, '
@@ -2226,8 +2301,11 @@ def main():
         sampler = ProbitRSRGibbs(Q2, W2, X2, y2, random_state=LATTICE['seed'],
                                  collapsed=collapsed, device=dev)
         post_p, sec_p, launches_p = run_timed(
-            sampler, NEW_SIZE, NEW_BURNIN, PROBIT_RSR_CHAINS, counters)
-        want = [0, 0, NEW_SIZE + warm + init_plans(sampler)]
+            sampler, NEW_SIZE, NEW_BURNIN, PROBIT_RSR_CHAINS,
+            counters + (collapsed_rsr_cuda.counter,))
+        # the collapsed ladder: the RSR kernel once a sweep a step
+        want = [0, 0, NEW_SIZE + warm + init_plans(sampler),
+                collapsed * sampler.spatial_sweeps * (NEW_SIZE + warm)]
         check(launches_p == want,
               f'probit RSR launches {launches_p} != {want}')
         check_posterior(post_p, PROBIT_RSR_CHAINS, kept,
@@ -2237,9 +2315,12 @@ def main():
         print(f'    collapsed={collapsed} (q = {sampler.q_dim}):')
         report(f'{kind} ({card})', post_p, NEW_SIZE, sec_p)
         prsr[collapsed], prsr_s[collapsed] = post_p, sampler
+        if collapsed:
+            rsr_launches = launches_p[3]
     worst_probit = mean_parity(prsr[True], prsr[False])
     print(f'    worst mean z-ratio, collapsed vs reference-ordered '
           f'{worst_probit:.3f}')
+    rsr_times = collapsed_rsr_times(dev)
     done(t0)
 
     paths = {
@@ -2292,21 +2373,21 @@ def main():
         # whole field) after the init's plans)
         regimes = {
             'logit stencil': (lattice_2d[LogitICARGibbs],
-                              LARGE_CHAINS['stencil'], (1, 0, 1, 0), (1, 0),
-                              1),
+                              LARGE_CHAINS['stencil'], (1, 0, 1, 0, 0),
+                              (1, 0), 1),
             'logit graph': (graph_2d[LogitICARGibbs], LARGE_CHAINS['graph'],
-                            (1, 0, 1, 0), (1, 0), 0),
+                            (1, 0, 1, 0, 0), (1, 0), 0),
             "logit 'cg' cg_impl='pallas'": (dense_2d['a'], CHAINS,
-                                            (1, 3, 1, 0), (1, 1), 0),
-            'logit RSR': (dense_2d['d'], CHAINS, (1, 0, 1, 0), (0, 0), 0),
+                                            (1, 3, 1, 0, 0), (1, 1), 0),
+            'logit RSR': (dense_2d['d'], CHAINS, (1, 0, 1, 0, 0), (0, 0), 0),
             'probit stencil': (lattice_2d[ProbitICARGibbs],
-                               LARGE_CHAINS['stencil'], (0, 0, 1, 0), (0, 0),
-                               1),
+                               LARGE_CHAINS['stencil'], (0, 0, 1, 0, 0),
+                               (0, 0), 1),
         }
-        regimes = {k: (s, c, step, cold + (init_plans(s), solve))
+        regimes = {k: (s, c, step, cold + (init_plans(s), solve, 0))
                    for k, (s, c, step, cold, solve) in regimes.items()}
-        nccl_pg, nccl_cg, nccl_plan, _ = nccl_graph_phase(
-            dev, card, counters4, meshes['nccl'], regimes)
+        nccl_pg, nccl_cg, nccl_plan, *_ = nccl_graph_phase(
+            dev, card, counters5, meshes['nccl'], regimes)
 
     t0 = phase('20 report')
     # no single PyTorch call computes either function (a fixed-round
@@ -2360,6 +2441,11 @@ def main():
         launches_2d_nccl=two_d_plan[1], launches_2d_graph=two_d_graph_plan[0],
         launches_2d_dense=dense_plan, launches_2d_captured=nccl_plan,
         headline=plan_head, lattice10k_stencil=plan_large,
+    ))
+    kernels.append(dict(
+        common, name='collapsed_rsr (no TPU counterpart)',
+        source='occuspytial_tpu_torch/csrc/collapsed_rsr.cu', replaces=None,
+        launches_probit_rsr=rsr_launches, probit_rsr1k=rsr_times,
     ))
     kernels.append(dict(
         common, name='stencil_pcg (no TPU counterpart)',

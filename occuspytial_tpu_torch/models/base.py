@@ -38,7 +38,7 @@ import torch.distributed as dist
 from .. import rng, tracing
 from .._device import resolve_device, resolve_dtype
 from ..data import as_occupancy_data
-from ..ops import cuda_stencil
+from ..ops import cuda_rsr, cuda_stencil
 from ..ops.cuda_cg import icar_cg_solve_cuda
 from ..ops.cuda_pg import pg_devroye_cuda
 from ..ops.cuda_rng import threefry_plan
@@ -49,10 +49,12 @@ from ..posterior import PosteriorParameter
 #: the hand-written kernels' launch counts (``.launches``, counted on the
 #: card by the kernels themselves, replays of a captured step included):
 #: K1, K3, the Threefry draw plan (one launch a ``rng.DrawPlan`` call on
-#: CUDA keys) and the stencil PCG (one launch a lattice solve on the card)
+#: CUDA keys), the stencil PCG (one launch a lattice solve on the card)
+#: and the collapsed RSR sweep (one launch a collapsed probit RSR sweep)
 KERNEL_COUNTERS = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
                    threefry_plan.counter,
-                   cuda_stencil.stencil_pcg_cuda.counter)
+                   cuda_stencil.stencil_pcg_cuda.counter,
+                   cuda_rsr.collapsed_rsr_cuda.counter)
 
 #: update indices of the init draws (step 0 of the init keys) beyond the
 #: common start's 1-4: a reduced-basis eta and the probit site effect

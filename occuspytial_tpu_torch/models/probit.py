@@ -18,11 +18,12 @@ step, per chain:
 As in :mod:`.logit`, every update takes its noise as arguments and the
 step makes it from the chain's counter-based stream, so a test can feed
 the port and the JAX package the same draws. The step's draws come from
-the Threefry draw-plan kernel on the card (:mod:`..rng`), and the
+the Threefry draw-plan kernel on the card (:mod:`..rng`), the
 ``'stencil'`` regime's eta solve is the stencil PCG kernel there
-(:mod:`..ops.cuda_stencil`); the rest is elementwise draws and small
-dense products, plain torch ops here as they are plain ``jnp`` in the
-JAX package. The spatial field, and with it the eta regime, is
+(:mod:`..ops.cuda_stencil`), and the collapsed RSR sweep's factor,
+solves and draws are one kernel there (:mod:`..ops.cuda_rsr`); the rest
+is elementwise draws and small dense products, plain torch ops here as
+they are plain ``jnp`` in the JAX package. The spatial field, and with it the eta regime, is
 :mod:`.field`'s, shared with the logit samplers.
 """
 
@@ -33,6 +34,7 @@ import torch
 from torch.special import log_ndtr
 
 from .. import rng, tracing
+from ..ops import cuda_rsr
 from ..ops.mvnorm import (
     cholesky_solve,
     constrained_icar_mvnorm_unit,
@@ -316,6 +318,18 @@ class _ProbitBase(GibbsBase):
         q x q Cholesky); None where they need none."""
         return None
 
+    def _collapsed_beta_eta(self, s, omega_b, fixed, eps_beta, eps_eta):
+        """The collapsed draws of a sweep into ``s``: beta with eta and
+        eps integrated out, then eta (and the spatial term) given beta."""
+        factor = self._collapsed_factor(s['tau'], fixed)
+        s['beta'] = self._update_beta_collapsed(
+            s, omega_b, s['tau'], fixed, eps_beta, factor
+        )
+        with tracing.phase('eta_solve'):
+            s['eta'], s['spatial'] = self._update_eta_collapsed(
+                s, omega_b, s['tau'], fixed, eps_eta, factor
+            )
+
     # ----------------------------- transition ------------------------- #
 
     def _step(self, keys, step, state, fixed):
@@ -350,14 +364,8 @@ class _ProbitBase(GibbsBase):
                 eps_eta = rng.normal(w[base + _ETA], dt)
                 eps_eps = rng.normal(w[base + _EPS], dt)
                 if self.collapsed:
-                    factor = self._collapsed_factor(s['tau'], fixed)
-                    s['beta'] = self._update_beta_collapsed(
-                        s, omega_b, s['tau'], fixed, eps_beta, factor
-                    )
-                    with tracing.phase('eta_solve'):
-                        s['eta'], s['spatial'] = self._update_eta_collapsed(
-                            s, omega_b, s['tau'], fixed, eps_eta, factor
-                        )
+                    self._collapsed_beta_eta(s, omega_b, fixed, eps_beta,
+                                             eps_eta)
                     s['eps'] = self._update_eps(s, omega_b, fixed, eps_eps)
                 else:
                     s['eps'] = self._update_eps(s, omega_b, fixed, eps_eps)
@@ -422,6 +430,8 @@ class ProbitRSRGibbs(RSRField, _ProbitBase):
         f['KTK'] = f['K'].T @ f['K']
         f['KTX'] = f['K'].T @ x_np
         f['XTX'] = x_np.T @ x_np
+        if self._takes_kernel:
+            cuda_rsr.load()
 
     def _update_eta(self, state, omega_b, tau, fixed, eps):
         """eta with precision K'K + tau Q_rsr (reference
@@ -438,6 +448,29 @@ class ProbitRSRGibbs(RSRField, _ProbitBase):
     # covariance 2I + K (tau Q_rsr)^{-1} K' given beta, and by Woodbury
     # its inverse is I/2 - K A^{-1} K'/4 with A = tau Q_rsr + K'K/2, the
     # precision of the collapsed eta draw.
+
+    @property
+    def _takes_kernel(self):
+        """Whether the collapsed sweep's q-space work is one launch of the
+        CUDA kernel (:func:`..ops.cuda_rsr.collapsed_rsr_cuda`): the
+        collapsed ladder, float32 on a CUDA device, q and p within the
+        kernel's budget (:func:`..ops.cuda_rsr.takes_kernel`); the torch
+        ops below run every other case."""
+        return self.collapsed and cuda_rsr.takes_kernel(
+            self.q_dim, self.n_beta, self.device, self.dtype)
+
+    def _collapsed_beta_eta(self, s, omega_b, fixed, eps_beta, eps_eta):
+        if not self._takes_kernel:
+            super()._collapsed_beta_eta(s, omega_b, fixed, eps_beta, eps_eta)
+            return
+        sites = self._sites
+        ku = sites.contract(omega_b, fixed['K'])
+        xu = sites.contract(omega_b, fixed['X'])
+        with tracing.phase('rsr_factor'):
+            s['beta'], s['eta'] = cuda_rsr.collapsed_rsr_cuda(
+                s['tau'], ku, xu, eps_beta, eps_eta, fixed)
+        with tracing.phase('eta_solve'):
+            s['spatial'] = s['eta'] @ fixed['K'].T
 
     def _collapsed_factor(self, tau, fixed):
         with tracing.phase('rsr_factor'):

@@ -28,6 +28,7 @@ from occuspytial_tpu_torch.ops import polyagamma as tpg
 from occuspytial_tpu_torch.ops.cuda_cg import icar_cg_solve_cuda, k3_operands
 from occuspytial_tpu_torch.ops.cuda_pg import pg_devroye_cuda
 from occuspytial_tpu_torch.ops.cuda_rng import threefry_plan
+from occuspytial_tpu_torch.ops.cuda_rsr import collapsed_rsr_cuda
 from occuspytial_tpu_torch.ops.cuda_stencil import stencil_pcg_cuda
 from occuspytial_tpu_torch.ops.icar import icar_spectral, lattice_precision
 from occuspytial_tpu_torch.parallel.sharded_stencil import bands
@@ -676,6 +677,146 @@ def test_stencil_kernel_refuses_what_it_does_not_take(dev):
     assert stencil_pcg_cuda.counter.launches == before
 
 
+# ----------------- the collapsed probit RSR sweep kernel ----------------- #
+
+@pytest.fixture(scope='module')
+def rsr_cell():
+    """ProbitRSRGibbs on the card at the benchmark cell's shapes: 1,000
+    sites (40 x 25 queen lattice), p = 3, q = 128."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card; the CPU run holds the plain version')
+    Q, W, X, y, *_ = make_lattice_dataset(40, 25, ns=500, seed=7)
+    s = ProbitRSRGibbs(Q, W, X, y, random_state=4, q=128, device='cuda')
+    assert (s.q_dim, s.n_beta) == (128, 3) and s._takes_kernel
+    return s
+
+
+def _rsr_inputs(s, chains, seed=0):
+    """(tau, u, eps_beta, eps_eta) of ``chains`` chains, float32 on the
+    sampler's device: tau over the posterior's range and beyond."""
+    gen = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=s.device)
+
+    return (t(gen.uniform(0.2, 40.0, chains)),
+            t(1.5 * gen.standard_normal((chains, s.n))),
+            t(gen.standard_normal((chains, s.n_beta))),
+            t(gen.standard_normal((chains, s.q_dim))))
+
+
+def _rsr_kernel(s, tau, u, eps_beta, eps_eta):
+    f = s.fixed
+    return collapsed_rsr_cuda(tau, u @ f['K'], u @ f['X'], eps_beta, eps_eta,
+                              f)
+
+
+def _rsr_plain(s, fixed, tau, u, eps_beta, eps_eta):
+    """The torch path the kernel replaces (the sampler's own methods) on
+    the arrays ``fixed``."""
+    chol = s._collapsed_factor(tau, fixed)
+    beta = s._update_beta_collapsed({}, u, tau, fixed, eps_beta, chol)
+    eta, _ = s._update_eta_collapsed({'beta': beta}, u, tau, fixed,
+                                     eps_eta, chol)
+    return beta, eta
+
+
+@pytest.mark.parametrize('chains', [1, 3, 37, 256])
+def test_collapsed_rsr_kernel_matches_the_torch_path(dev, rsr_cell, chains):
+    """The kernel's (beta, eta) against a float64 run of the torch path on
+    the same float32 inputs: within 4x the float32 torch path's own
+    largest error (or 1e-5 of the largest entry), every entry finite."""
+    s = rsr_cell
+    args = _rsr_inputs(s, chains, seed=chains)
+    got = _rsr_kernel(s, *args)
+    plain = _rsr_plain(s, s.fixed, *args)
+    f64 = {k: v.double().cpu() for k, v in s.fixed.items()
+           if torch.is_tensor(v) and v.is_floating_point()}
+    ref = _rsr_plain(s, f64, *(a.double().cpu() for a in args))
+    for name, g, p, r in zip(('beta', 'eta'), got, plain, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        err = float((g.double().cpu() - r).abs().max())
+        err_plain = float((p.double().cpu() - r).abs().max())
+        assert err <= max(4 * err_plain, 1e-5 * float(r.abs().max())), (
+            name, err, err_plain)
+
+
+@pytest.mark.parametrize('lattice, p, q', [((12, 12), 5, 70),
+                                           ((10, 10), 1, 33),
+                                           ((12, 12), 6, 96)])
+def test_collapsed_rsr_kernel_off_the_cell_shapes(dev, lattice, p, q):
+    """q off the 32-row panels (padded with identity) and p from 1 to the
+    kernel's 6: the kernel against the float64 torch path as at the
+    cell's shapes."""
+    Q, W, X, y, *_ = make_lattice_dataset(*lattice, ns=60, seed=3, p=p)
+    s = ProbitRSRGibbs(Q, W, X, y, random_state=4, q=q, device=dev)
+    assert (s.q_dim, s.n_beta) == (q, p) and s._takes_kernel
+    args = _rsr_inputs(s, 37, seed=q)
+    got = _rsr_kernel(s, *args)
+    plain = _rsr_plain(s, s.fixed, *args)
+    f64 = {k: v.double().cpu() for k, v in s.fixed.items()
+           if torch.is_tensor(v) and v.is_floating_point()}
+    ref = _rsr_plain(s, f64, *(a.double().cpu() for a in args))
+    for name, g, pl, r in zip(('beta', 'eta'), got, plain, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        err = float((g.double().cpu() - r).abs().max())
+        err_plain = float((pl.double().cpu() - r).abs().max())
+        assert err <= max(4 * err_plain, 1e-5 * float(r.abs().max())), (
+            name, err, err_plain)
+
+
+def test_collapsed_rsr_kernel_marks_a_failed_factor_nan(dev, rsr_cell):
+    """An indefinite A (a negative tau) gives NaN beta and eta rows for
+    that chain alone; the other chains are bit for bit their own run's."""
+    s = rsr_cell
+    tau, *rest = _rsr_inputs(s, 8)
+    bad = tau.clone()
+    bad[3] = -5.0
+    beta, eta = _rsr_kernel(s, bad, *rest)
+    ok_beta, ok_eta = _rsr_kernel(s, tau, *rest)
+    assert bool(torch.isnan(beta[3]).all() and torch.isnan(eta[3]).all())
+    keep = torch.arange(8, device=dev) != 3
+    assert torch.equal(beta[keep], ok_beta[keep])
+    assert torch.equal(eta[keep], ok_eta[keep])
+
+
+def test_collapsed_rsr_kernel_chain_independence(dev, rsr_cell):
+    """A chain's draws are the same bits at 1 and at 256 chains, and from
+    launch to launch, given the same kernel inputs (the site contractions
+    K'u and X'u are cuBLAS products outside the kernel, whose bits may
+    depend on the batch)."""
+    s, f = rsr_cell, rsr_cell.fixed
+    tau, u, eb, ee = _rsr_inputs(s, 256, seed=5)
+    args = (tau, u @ f['K'], u @ f['X'], eb, ee)
+    full = collapsed_rsr_cuda(*args, f)
+    assert all(torch.equal(a, b)
+               for a, b in zip(full, collapsed_rsr_cuda(*args, f)))
+    for i in (0, 77, 255):
+        one = collapsed_rsr_cuda(*(a[i:i + 1] for a in args), f)
+        assert torch.equal(one[0], full[0][i:i + 1])
+        assert torch.equal(one[1], full[1][i:i + 1])
+
+
+def test_collapsed_rsr_kernel_refuses_what_it_does_not_take(dev, rsr_cell):
+    """CPU tensors, float64, shapes that disagree and sizes beyond the
+    kernel's raise before any launch."""
+    s = rsr_cell
+    tau, u, eb, ee = _rsr_inputs(s, 4)
+    f = s.fixed
+    ku, xu = u @ f['K'], u @ f['X']
+    before = collapsed_rsr_cuda.counter.launches
+    with pytest.raises(ValueError):
+        collapsed_rsr_cuda(tau.cpu(), ku, xu, eb, ee, f)
+    with pytest.raises(TypeError):
+        collapsed_rsr_cuda(tau.double(), ku, xu, eb, ee, f)
+    with pytest.raises(ValueError):
+        collapsed_rsr_cuda(tau, ku, xu, eb, ee[:, :-1], f)
+    wide = torch.zeros((4, 129), device=dev)
+    with pytest.raises(ValueError):
+        collapsed_rsr_cuda(tau, wide, xu, eb, wide, f)
+    assert collapsed_rsr_cuda.counter.launches == before
+
+
 def test_main_path_runs_and_is_reproducible(dev):
     Q, W, X, y, *_ = make_data(n=150, ns=100, p=3, q=2, random_state=10)
     draws = []
@@ -726,14 +867,26 @@ def test_logit_rsr_launches_the_pg_kernel_once_per_step(dev):
 @pytest.mark.parametrize('cls', ['icar', 'rsr'])
 @pytest.mark.parametrize('collapsed', [True, False])
 def test_probit_samplers_run_and_are_reproducible(dev, cls, collapsed):
-    """The probit paths launch no hand-written kernel: their draws come
-    from torch ops alone, bit for bit the same twice."""
+    """The probit paths launch neither K1 nor K3; the collapsed RSR
+    ladder launches the collapsed RSR kernel once a sweep a step (warm-up
+    step included), the other paths not at all; bit for bit the same
+    twice."""
     Q, W, X, y, *_ = make_lattice_dataset(10, 10, ns=50, seed=3)
     sampler = {'icar': ProbitICARGibbs, 'rsr': ProbitRSRGibbs}[cls]
-    before = (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches)
-    _run_twice(lambda: sampler(Q, W, X, y, random_state=4,
-                               collapsed=collapsed), 10, 8)
-    assert (pg_devroye_cuda.counter.launches, icar_cg_solve_cuda.counter.launches) == before
+    counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
+                collapsed_rsr_cuda.counter)
+    before = [c.launches for c in counters]
+    made = []
+
+    def make():
+        made.append(sampler(Q, W, X, y, random_state=4,
+                            collapsed=collapsed))
+        return made[-1]
+
+    _run_twice(make, 10, 8)
+    sweeps = made[0].spatial_sweeps
+    want = 2 * sweeps * (10 + WARM) if cls == 'rsr' and collapsed else 0
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, want]
 
 
 # ---------------------- the large-n eta regimes ------------------------ #
@@ -1193,7 +1346,7 @@ def test_graph_replays_advance_the_step(dev):
     whole = s.sample(16, chains=4, progressbar=False)
     carry = s.final_carry
     runner = s._graph_runners[(4, ())]
-    assert runner.per_replay == [1, 3, 1, 0]
+    assert runner.per_replay == [1, 3, 1, 0, 0]
     s.scan_chunk = 5
     counters = (pg_devroye_cuda.counter, icar_cg_solve_cuda.counter,
                 threefry_plan.counter)
@@ -1298,14 +1451,15 @@ def test_2d_nccl_band_step_is_captured_and_matches_the_host_loop(dev,
     from occuspytial_tpu_torch.parallel import mesh_2d, sample_parallel_2d
 
     Q, W, X, y, *_ = make_lattice_dataset(20, 30, ns=300, seed=5)
-    # K1, K3, the draw plan and the stencil PCG: a band solves in torch,
-    # the parent's cold-start check on the whole field by the kernel
+    # K1, K3, the draw plan, the stencil PCG and the collapsed RSR sweep:
+    # a band solves in torch, the parent's cold-start check on the whole
+    # field by the kernel
     if regime == 'stencil':
         kw = dict(lattice=(20, 30, 8))
-        per_step, cold = [1, 0, 1, 0], [1, 0, 1, 1]
+        per_step, cold = [1, 0, 1, 0, 0], [1, 0, 1, 1, 0]
     else:
         kw = dict(solver='cg', cg_iters=15, cg_impl='pallas')
-        per_step, cold = [1, 3, 1, 0], [1, 1, 1, 0]
+        per_step, cold = [1, 3, 1, 0, 0], [1, 1, 1, 0, 0]
     counters = KERNEL_COUNTERS
     size, runs = 8, {}
     for eager in (False, True):
@@ -1399,7 +1553,7 @@ def test_a_step_captured_with_tracing_off_holds_no_mark(dev, traced):
     block()
     on = s._graph_runners[(4, ())]
     assert on is not off
-    assert on.per_replay == off.per_replay == [1, 3, 1, 0]
+    assert on.per_replay == off.per_replay == [1, 3, 1, 0, 0]
     # step, draws, pg, alpha, z and store; tau, beta_eta, eta_solve and
     # asis a sweep
     spans = 6 + 4 * s.spatial_sweeps
