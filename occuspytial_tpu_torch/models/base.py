@@ -398,6 +398,9 @@ class GibbsBase:
         return state
 
     def _to_device(self, v):
+        if isinstance(v, torch.Tensor):  # built on the device already
+            return v.to(self.device, self.dtype if v.is_floating_point()
+                        else v.dtype)
         arr = np.asarray(v)
         if arr.dtype.kind == 'f':
             return torch.as_tensor(arr, device=self.device).to(self.dtype)

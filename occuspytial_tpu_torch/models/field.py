@@ -15,6 +15,8 @@ its op module in :data:`OPS`. Port of the JAX package's
 ``models/etasetup.py`` and of its samplers' field code.
 """
 
+import time
+
 import numpy as np
 import scipy.sparse as sps
 import torch
@@ -389,13 +391,31 @@ class ICARField:
             )
 
 
+def resolve_basis(basis, n_sites, device):
+    """The RSR basis route: ``'host'`` (numpy ``eigh``, from
+    :data:`..ops.icar._MORAN_LANCZOS_THRESHOLD` sites a scipy Lanczos for
+    a sparse Q) or ``'device'`` (float64 on the sampler's device,
+    :func:`..ops.icar.moran_basis_device`). ``None`` picks ``'device'`` on
+    a CUDA card from that many sites, else ``'host'``."""
+    if basis is None:
+        return ('device' if torch.device(device).type == 'cuda'
+                and n_sites >= icar._MORAN_LANCZOS_THRESHOLD else 'host')
+    if basis not in ('host', 'device'):
+        raise ValueError(f'unknown basis route: {basis!r}')
+    return basis
+
+
 class RSRField:
-    """Reduced Spatial Regression: the Moran basis K (n, q) is built once
-    on the host (:func:`..ops.icar.moran_basis`, threshold ``r`` or ``q``
-    columns, kept by the link's constructor as ``_rsr_r`` and ``_rsr_q``);
-    eta lives in that basis, ``spatial = K eta``, with precision tau *
-    Q_rsr, Q_rsr = K'QK. Put first in the bases: it overrides the ICAR
-    field that ``LogitRSRGibbs`` inherits."""
+    """Reduced Spatial Regression: the Moran basis K (n, q) is built once,
+    at construction (threshold ``r`` or ``q`` columns, kept by the link's
+    constructor as ``_rsr_r`` and ``_rsr_q``), by the route ``basis``
+    (:func:`resolve_basis`): on the host (:func:`..ops.icar.moran_basis`)
+    or in float64 on the device (:func:`..ops.icar.moran_basis_device`,
+    each eigenvector's sign fixed by :func:`..ops.icar.signed_columns`);
+    its host-clock seconds are ``basis_seconds``. eta lives in that basis,
+    ``spatial = K eta``, with precision tau * Q_rsr, Q_rsr = K'QK. Put
+    first in the bases: it overrides the ICAR field that ``LogitRSRGibbs``
+    inherits."""
 
     _solves_lambda = False
     _eta_on_sites = False
@@ -406,9 +426,20 @@ class RSRField:
 
     def _configure_field(self, Q, x_np):
         icar.verify_spatial_precision(Q)
-        k_basis, q_rsr = icar.moran_basis(
-            x_np, Q, r=self._rsr_r, num_eigs=self._rsr_q
-        )
+        self.basis = resolve_basis(self._rsr_basis, self.n, self.device)
+        t = time.perf_counter()
+        if self.basis == 'device':
+            k_basis, q_rsr, _ = icar.moran_basis_device(
+                x_np, Q, r=self._rsr_r, num_eigs=self._rsr_q,
+                device=self.device,
+            )
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+        else:
+            k_basis, q_rsr = icar.moran_basis(
+                x_np, Q, r=self._rsr_r, num_eigs=self._rsr_q
+            )
+        self.basis_seconds = time.perf_counter() - t
         self.q_dim = q_rsr.shape[0]
         self.fixed['K'] = k_basis
         self.fixed['Q_rsr'] = q_rsr

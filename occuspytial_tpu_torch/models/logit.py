@@ -417,22 +417,25 @@ class LogitRSRGibbs(RSRField, LogitICARGibbs):
     """Logit sampler with Reduced Spatial Regression (Moran basis).
 
     Port of the JAX package's ``LogitRSRGibbs`` (reference
-    gibbs/logit.py:340-485); same constructor plus ``device``. The Moran
-    basis K (n, q) is built once on the host (:func:`..ops.icar.
-    moran_basis`, threshold ``r`` or ``q`` columns); eta lives in that
-    basis and ``spatial = K eta``. A step draws both PG fields in one
-    launch of the CUDA kernel (on the card), then ``spatial_sweeps``
-    (default 2) times tau, eta (:func:`..ops.mvnorm.rsr_mvnorm`), beta and
-    the ASIS move. ``solver`` and ``blocked`` are accepted and unused, as
-    in the JAX package: no solve against tau*Q + diag(omega) is made.
+    gibbs/logit.py:340-485); same constructor plus ``device`` and
+    ``basis``. The Moran basis K (n, q) is built once (threshold ``r`` or
+    ``q`` columns) by the route ``basis`` (:class:`.field.RSRField`:
+    ``'host'``, ``'device'``, or None for ``'device'`` on a CUDA card from
+    2,048 sites and ``'host'`` otherwise); eta lives in that basis and
+    ``spatial = K eta``. A step draws both PG fields in one launch of the
+    CUDA kernel (on the card), then ``spatial_sweeps`` (default 2) times
+    tau, eta (:func:`..ops.mvnorm.rsr_mvnorm`), beta and the ASIS move.
+    ``solver`` and ``blocked`` are accepted and unused, as in the JAX
+    package: no solve against tau*Q + diag(omega) is made.
     """
 
     def __init__(
         self, Q, W, X, y, hparams=None, random_state=None, r=0.5, q=None,
-        dtype=torch.float32, pg_method=None, **kwargs,
+        dtype=torch.float32, pg_method=None, basis=None, **kwargs,
     ):
         self._rsr_r = r
         self._rsr_q = q
+        self._rsr_basis = basis
         # the JAX package's measured default: a third sweep does not pay
         # in the reduced basis (tau does not bind there)
         kwargs.setdefault('spatial_sweeps', 2)
@@ -442,17 +445,26 @@ class LogitRSRGibbs(RSRField, LogitICARGibbs):
         )
 
     def _configure_field(self, Q, x_np):
+        """The basis, then E with E E' = Q_rsr, the noise factor of the
+        eta draw: on the device route in float64 on the device, each
+        eigenvector signed as K's columns are."""
         super()._configure_field(Q, x_np)
-        self.fixed['sqrt_factor'] = icar.psd_sqrt_factor(self.fixed['Q_rsr'])
+        if self.basis == 'device':
+            self.fixed['sqrt_factor'], _ = icar.psd_sqrt_factor_device(
+                self.fixed['Q_rsr'])
+        else:
+            self.fixed['sqrt_factor'] = icar.psd_sqrt_factor(
+                self.fixed['Q_rsr'])
 
     def _update_eta(self, state, omega_b, tau, fixed, eps1, eps2):
         """Reduced-basis eta draw (reference gibbs/logit.py:478-485);
-        ``eps1`` (chains, n) and ``eps2`` (chains, q) standard normals."""
+        ``eps1`` (chains, n) and ``eps2`` (chains, q) standard normals.
+        :func:`..ops.mvnorm.rsr_mvnorm` marks its precision
+        (``rsr_precision``) and its factor and solves (``rsr_factor``)."""
         xb = lincomb(state['beta'], fixed['X'].T)
         b = self._sites.contract(state['k'] - omega_b * xb, fixed['K'])
-        with tracing.phase('eta_solve'):
-            eta = rsr_mvnorm(
-                b, omega_b, tau, fixed['Q_rsr'], fixed['K'],
-                fixed['sqrt_factor'], eps1, eps2, sites=self._sites,
-            )
+        eta = rsr_mvnorm(
+            b, omega_b, tau, fixed['Q_rsr'], fixed['K'],
+            fixed['sqrt_factor'], eps1, eps2, sites=self._sites,
+        )
         return eta, eta @ fixed['K'].T

@@ -407,18 +407,19 @@ class ProbitRSRGibbs(RSRField, _ProbitBase):
     """Probit sampler with Reduced Spatial Regression spatial effects.
 
     Port of the JAX package's ``ProbitRSRGibbs`` (reference
-    gibbs/probit.py:27-270): the Moran basis K (n, q) of
-    :func:`..ops.icar.moran_basis`, ``spatial = K eta``. The collapsed
+    gibbs/probit.py:27-270): the Moran basis K (n, q) by the route
+    ``basis`` (:class:`.field.RSRField`), ``spatial = K eta``. The collapsed
     beta draw uses Woodbury through A = tau Q_rsr + K'K/2, whose one
     Cholesky per chain and sweep also serves the collapsed eta draw.
     """
 
     def __init__(
         self, Q, W, X, y, hparams=None, random_state=None, r=0.5, q=None,
-        dtype=torch.float32, collapsed=True, **kwargs,
+        dtype=torch.float32, collapsed=True, basis=None, **kwargs,
     ):
         self._rsr_r = r
         self._rsr_q = q
+        self._rsr_basis = basis
         super().__init__(
             Q, W, X, y, hparams, random_state, dtype=dtype,
             collapsed=collapsed, **kwargs,
@@ -427,8 +428,10 @@ class ProbitRSRGibbs(RSRField, _ProbitBase):
     def _configure_field(self, Q, x_np):
         super()._configure_field(Q, x_np)
         f = self.fixed
-        f['KTK'] = f['K'].T @ f['K']
-        f['KTX'] = f['K'].T @ x_np
+        k = f['K']
+        f['KTK'] = k.T @ k
+        f['KTX'] = k.T @ (torch.as_tensor(x_np).to(k)
+                          if isinstance(k, torch.Tensor) else x_np)
         f['XTX'] = x_np.T @ x_np
         if self._takes_kernel:
             cuda_rsr.load()

@@ -15,10 +15,16 @@ yields bit-identical arrays):
 - ``moran_basis``: the Reduced Spatial Regression basis (reference
   gibbs/logit.py:415-447), dense ``eigh`` or, for a sparse Q from
   :data:`_MORAN_LANCZOS_THRESHOLD` sites, matrix-free Lanczos.
+- ``moran_basis_device``: the same basis built in float64 on a torch
+  device (the dense Moran operator and ``torch.linalg.eigh``), each
+  eigenvector's sign fixed by :func:`signed_columns`; with
+  ``psd_sqrt_factor_device`` it is the RSR samplers' ``basis='device'``
+  route (:class:`..models.field.RSRField`).
 """
 
 import numpy as np
 import scipy.sparse as sps
+import torch
 from scipy.sparse.linalg import LinearOperator, eigsh
 
 
@@ -186,3 +192,103 @@ def _moran_basis_lanczos(x, q_csr, r, num_eigs, xtx_inv_xt):
     q_rsr = v.T @ (q_csr @ v)
     # the Lanczos basis is orthonormal to rounding only: symmetrize
     return v, 0.5 * (q_rsr + q_rsr.T)
+
+
+#: seed of the fixed vector whose inner product signs the eigenvectors of
+#: the device route (:func:`sign_vector`)
+SIGN_SEED = 0
+
+
+def sign_vector(m):
+    """The sign convention's fixed vector g (m,): the first ``m`` standard
+    normals of ``numpy.random.default_rng(SIGN_SEED)``."""
+    return np.random.default_rng(SIGN_SEED).standard_normal(m)
+
+
+def signed_columns(v):
+    """``v`` (m, k) with each column's sign set so that g'v_j > 0, g =
+    :func:`sign_vector` (m); and the convention's margin, min_j |g'v_j| /
+    |g| (a column whose error in that direction stays below it keeps its
+    sign). An eigenvector's sign is arbitrary; this fixes it by a rule that
+    an independent build can follow."""
+    g = torch.as_tensor(sign_vector(v.shape[0]), dtype=v.dtype,
+                        device=v.device)
+    dots = g @ v
+    signs = torch.where(dots < 0, -torch.ones_like(dots),
+                        torch.ones_like(dots))
+    return v * signs, float(torch.min(torch.abs(dots)) / torch.norm(g))
+
+
+def _device_q(q, device):
+    """Q as a float64 tensor on ``device``: sparse COO for a scipy matrix,
+    dense otherwise."""
+    if sps.issparse(q):
+        coo = sps.coo_matrix(q)
+        idx = torch.as_tensor(np.vstack([coo.row, coo.col]).astype(np.int64))
+        return torch.sparse_coo_tensor(
+            idx, torch.as_tensor(coo.data, dtype=torch.float64), coo.shape,
+            check_invariants=True,
+        ).coalesce().to(device)
+    return torch.as_tensor(np.asarray(q, np.float64), device=device)
+
+
+def moran_operator(x, q, device):
+    """The dense Moran operator M = n P'AP / sum(A), A = -offdiag(Q), P = I
+    - X (X'X)^-1 X', in float64 on ``device``: A is written densely and P
+    applied to it by two rank-p corrections, so no second n x n matrix is
+    formed."""
+    xt = torch.as_tensor(np.asarray(x, np.float64), device=device)
+    n = xt.shape[0]
+    qd = _device_q(q, device)
+    if qd.is_sparse:
+        rows, cols = qd.indices()
+        off = rows != cols
+        a = torch.zeros((n, n), dtype=torch.float64, device=device)
+        a.index_put_((rows[off], cols[off]), -qd.values()[off],
+                     accumulate=True)
+    else:
+        a = -qd
+        a.fill_diagonal_(0.0)
+    total = torch.sum(a)
+    sxt = torch.linalg.solve(xt.T @ xt, xt.T)  # (X'X)^-1 X'
+    a.addmm_(a @ xt, sxt, alpha=-1.0)  # A P
+    a.addmm_(xt, sxt @ a, alpha=-1.0)  # P A P
+    return a.mul_(n / total)
+
+
+def moran_basis_device(x, q, r=0.5, num_eigs=None, device='cpu'):
+    """:func:`moran_basis` in float64 on ``device``: the dense
+    :func:`moran_operator`, its eigenpairs by ``torch.linalg.eigh`` and the
+    top ``num_eigs`` (or those with eigenvalue >= ``r``) as K, each column
+    signed by :func:`signed_columns`; Q_rsr = K'QK, made exactly
+    symmetric. Returns ``(K, q_rsr, info)``: K (n, q) and q_rsr (q, q)
+    float64 tensors on ``device``; ``info`` holds the operator's
+    eigenvalues (ascending, numpy) and the sign convention's ``margin``."""
+    if num_eigs is None and not 0 <= r <= 1:
+        raise ValueError('Threshold value needs to be in [0, 1]')
+    device = torch.device(device)
+    m = moran_operator(x, q, device)
+    w, v = torch.linalg.eigh(m)
+    del m
+    w = w.cpu().numpy()
+    q_dim = int(num_eigs) if num_eigs else int((w >= r).sum())
+    if not q_dim:
+        raise ValueError(
+            'The Moran Operator Matrix of the data has no positive '
+            'eigenvalues. Set threshold to a lower value'
+        )
+    k, margin = signed_columns(v[:, -q_dim:])
+    del v
+    qd = _device_q(q, device)
+    qk = torch.sparse.mm(qd, k) if qd.is_sparse else qd @ k
+    q_rsr = k.T @ qk
+    return k, 0.5 * (q_rsr + q_rsr.T), {'eigvals': w, 'margin': margin}
+
+
+def psd_sqrt_factor_device(q_rsr):
+    """:func:`psd_sqrt_factor` of a tensor on its device and in its dtype,
+    each eigenvector signed by :func:`signed_columns`. Returns ``(E,
+    margin)``."""
+    s, u = torch.linalg.eigh(q_rsr)
+    u, margin = signed_columns(u)
+    return u * torch.sqrt(torch.clamp(s, min=0.0)), margin

@@ -16,6 +16,7 @@ they are omitted they come from ``torch.randn`` with ``generator``.
 
 import torch
 
+from .. import tracing
 from .sites import LOCAL
 
 
@@ -199,7 +200,9 @@ def rsr_mvnorm(b, omega, tau, q_rsr, k_basis, sqrt_factor, eps1=None,
     (chains, q). The K' diag(omega) K contraction is a float32 product
     (the port keeps TF32 off on the card). The contractions over the
     sites go through ``sites`` (a band of a 2-D run holds its sites of
-    ``omega`` and ``eps1`` and its rows of K)."""
+    ``omega`` and ``eps1`` and its rows of K). Lambda's forming is the
+    phase ``rsr_precision``, its factor and solves ``rsr_factor``
+    (:mod:`..tracing`)."""
     eps1 = _normals(eps1, omega.shape, b, generator)
     eps2 = _normals(eps2, b.shape, b, generator)
     t = torch.as_tensor(tau, dtype=b.dtype, device=b.device)
@@ -207,8 +210,10 @@ def rsr_mvnorm(b, omega, tau, q_rsr, k_basis, sqrt_factor, eps1=None,
         b + sites.contract(torch.sqrt(omega) * eps1, k_basis)
         + torch.sqrt(t)[..., None] * (eps2 @ sqrt_factor.T)
     )
-    lam = t[..., None, None] * q_rsr + sites.contract(
-        k_basis.T * omega[..., None, :], k_basis
-    )
-    chol = torch.linalg.cholesky_ex(lam).L
-    return cholesky_solve(y[..., None], chol)[..., 0]
+    with tracing.phase('rsr_precision'):
+        lam = t[..., None, None] * q_rsr + sites.contract(
+            k_basis.T * omega[..., None, :], k_basis
+        )
+    with tracing.phase('rsr_factor'):
+        chol = torch.linalg.cholesky_ex(lam).L
+        return cholesky_solve(y[..., None], chol)[..., 0]

@@ -23,9 +23,12 @@ root, opened by the runner (``models/base.py``) around the sampler's
 - ``tau``, ``beta_eta`` and ``asis``: once a spatial sweep; ``beta_eta``
   holds the blocked update, or the eta and beta draws, and inside it
   ``eta_solve`` the eta solve (K3, the stencil or graph PCG, Cholesky,
-  the eigenbasis or the reduced-basis draw) and, for the probit RSR
-  sampler's collapsed ladder, ``rsr_factor``: the batched Cholesky
-  factor that its beta and eta draws share;
+  the eigenbasis draw, the probit RSR sampler's ``eta @ K'``) and, for
+  the probit RSR sampler's collapsed ladder, ``rsr_factor``: the batched
+  Cholesky factor that its beta and eta draws share; for the logit RSR
+  sampler's reduced-basis draw (``ops/mvnorm.py: rsr_mvnorm``)
+  ``rsr_precision``, forming tau Q_rsr + K' diag(omega) K, and
+  ``rsr_factor``, its factor and solves;
 - ``alpha``, ``z``; ``store``: the step's new state into the captured
   graph's buffers, or the host loop's copies of the draws.
 
@@ -71,9 +74,11 @@ from . import _build
 
 #: the phases, ``step`` (the root) first
 PHASES = ('step', 'draws', 'pg', 'latent', 'px', 'tau', 'asis',
-          'beta_eta', 'eta_solve', 'rsr_factor', 'alpha', 'z', 'store')
+          'beta_eta', 'eta_solve', 'rsr_factor', 'alpha', 'z', 'store',
+          'rsr_precision')
 #: each phase's parent phase
-PARENT = {name: ('beta_eta' if name in ('eta_solve', 'rsr_factor')
+PARENT = {name: ('beta_eta' if name in ('eta_solve', 'rsr_factor',
+                                        'rsr_precision')
                  else 'step') for name in PHASES}
 PARENT['step'] = None
 

@@ -62,6 +62,10 @@ def _occurrences(s):
             want['rsr_factor'] = sweeps
     else:
         want['pg'] = 1
+    if isinstance(s, LogitRSRGibbs):
+        # the reduced-basis draw: its precision, then its factor and solves
+        del want['eta_solve']
+        want['rsr_precision'] = want['rsr_factor'] = sweeps
     return want
 
 
@@ -103,9 +107,9 @@ def test_span_tree_and_counts(traced, case):
         children = sum(c['sum_s'] for c in spans.values()
                        if c['parent'] == name)
         assert children <= entry['sum_s'], name
-    assert spans['eta_solve']['parent'] == 'beta_eta'
-    if 'rsr_factor' in spans:
-        assert spans['rsr_factor']['parent'] == 'beta_eta'
+    for name in ('eta_solve', 'rsr_factor', 'rsr_precision'):
+        if name in spans:
+            assert spans[name]['parent'] == 'beta_eta'
     # one gap between two steps of a block, one boundary between blocks
     assert rep['launch_gap']['count'] == BLOCKS * (STEPS - 1)
     assert rep['block_boundary']['count'] == BLOCKS - 1
